@@ -1,0 +1,289 @@
+"""Drive the PyTorch port (geneo4petsc_tpu_torch) once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one line or block of output each; any failure ends the script
+with a non-zero exit code and no result line:
+
+1. device   — the card's name and power limit (nvidia-smi); TF32 off.
+2. build    — compile the CUDA kernels of geneo4petsc_tpu_torch/csrc/
+              (nvcc, sm_90a) and the native partitioner (native/kway.cpp).
+3. kernels  — each kernel against its plain PyTorch version on the card,
+              at the slice's shape [1024, 496, 496] float64 and a ragged
+              [3, 37, 37] case in float64 and float32; max relative error
+              <= 1e-12 (float64) / 1e-5 (float32); times by CUDA events.
+4. small    — the same small GenEO solve through the CLI on cpu and on
+              cuda: equal iteration counts and reasons.
+5. slice    — the generic GenEO path at 262,144 DOF through the CLI
+              (laplacian --size 512 --dim 2 --kappa 10000. minmax, 1024
+              subdomains, overlap 1, ASM,E1, inverse_pallas, CG 1e-8);
+              checks convergence, dim_e, Nicolaides count, iterations
+              and that the main path launched both kernels.
+
+It then prints one JSON line with every kernel's launches, error and
+times, and last the result line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+SLICE_ARGS = ["--inpLibA", "laplacian",
+              "--inpLibArg", "--size#512#--dim#2#--kappa#10000.#minmax",
+              "--nbPart", "1024", "--addOverlap", "1", "--metisDual",
+              "-pc_type", "geneo", "-geneo_lvl", "ASM,E1",
+              "-dls1_type", "inverse_pallas", "-ksp_type", "cg",
+              "-ksp_rtol", "1e-8"]
+SLICE_DOF, SLICE_DIM_E, SLICE_NICOLAIDES, SLICE_ITS = 262144, 2776, 1, 58
+SMALL_ARGS = ["--inpLibA", "laplacian", "--inpLibArg", "--size#32#--dim#2",
+              "--nbPart", "8", "--addOverlap", "1", "-pc_type", "geneo",
+              "-geneo_lvl", "ASM,E1", "-dls1_type", "inverse_pallas",
+              "-ksp_type", "cg", "-ksp_rtol", "1e-8"]
+MAIN_SHAPE = (1024, 496)   # (n_dom, n_max) of the slice
+TOL = {"float64": 1e-12, "float32": 1e-5}
+
+_RE_SOLVE = re.compile(r"INFO: solve - (converged|diverged) \(([A-Z_]+)\), "
+                       r"(\d+) iteration\(s\), residual norm \S+, "
+                       r"\|\| AX - B \|\| / \|\| B \|\| (\S+)")
+_RE_DOF = re.compile(r"INFO: nb DOFs (\d+),")
+_RE_DIME = re.compile(r"real dimE (\d+) .*nicolaides (\d+)")
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def phase_device() -> str:
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device (torch.cuda)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"cards {torch.cuda.device_count()}", flush=True)
+    return smi
+
+
+def phase_build() -> None:
+    from geneo4petsc_tpu_torch.ops import _build
+    from geneo4petsc_tpu_torch.partition import native
+
+    t0 = time.perf_counter()
+    path, report = _build.build(ptxas_info=True)
+    t_cuda = time.perf_counter() - t0
+    _build.load()
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", report))
+    print(f"[build] ptxas: {len(regs)} kernels, at most {max(regs)} "
+          f"registers a thread, {spills} bytes of spills", flush=True)
+    t0 = time.perf_counter()
+    native.build()
+    t_native = time.perf_counter() - t0
+    check(native.available(), "native partitioner did not load")
+    print(f"[build] kernels {os.path.relpath(path, HERE)} in {t_cuda:.2f} s,"
+          f" native partitioner in {t_native:.2f} s", flush=True)
+
+
+def _time_ms(fn, reps: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def phase_kernels() -> dict:
+    """Each kernel against its plain version; returns the main-shape
+    numbers per kernel for the JSON line."""
+    import torch
+
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    cases = [(MAIN_SHAPE, torch.float64, 20), ((3, 37), torch.float64, 50),
+             ((3, 37), torch.float32, 50)]
+    summary = {}
+    for (n_dom, n), dtype, reps in cases:
+        inv = torch.from_numpy(rng.standard_normal((n_dom, n, n))).to(
+            dev, dtype)
+        d = torch.from_numpy(rng.random((n_dom, n)) + 0.5).to(dev, dtype)
+        mask = torch.from_numpy(rng.random((n_dom, n)) > 0.2).to(dev)
+        x = torch.from_numpy(rng.standard_normal((n_dom, n))).to(dev, dtype)
+        tol = TOL[str(dtype).removeprefix("torch.")]
+        main = (n_dom, n) == MAIN_SHAPE
+        bytes_moved = inv.numel() * inv.element_size()
+        runs = [("fused_local_solve", f"pre={pre} post={post}",
+                 lambda pre=pre, post=post: lk.fused_local_solve(
+                     inv, d, mask, x, pre, post),
+                 lambda pre=pre, post=post: lk.fused_local_solve_plain(
+                     inv, d, mask, x, pre, post))
+                for pre, post in ((False, False), (True, False), (True, True))]
+        runs.append(("block_matvec", "", lambda: lk.block_matvec(inv, x),
+                     lambda: lk.block_matvec_plain(inv, x)))
+        for name, variant, kern, plain in runs:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            abs_err = float((got - want).abs().max())
+            rel_err = abs_err / max(float(want.abs().max()), 1e-300)
+            ms = _time_ms(kern, reps)
+            plain_ms = _time_ms(plain, reps)
+            gbs = bytes_moved / (ms * 1e-3) / 1e9
+            print(f"[kernels] {name} {variant} [{n_dom},{n},{n}] "
+                  f"{str(dtype).removeprefix('torch.')}: max rel err "
+                  f"{rel_err:.3e} (tol {tol:g}), kernel {ms:.4f} ms "
+                  f"({gbs:.0f} GB/s of matrix), plain {plain_ms:.4f} ms",
+                  flush=True)
+            check(rel_err <= tol, f"{name} {variant} disagrees with its "
+                                  f"plain version: {rel_err:.3e} > {tol:g}")
+            if main:
+                # the slice runs ASM: K1 without weights is its variant
+                row = summary.setdefault(name, {"max_abs_err": 0.0})
+                row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+                if variant in ("", "pre=False post=False"):
+                    row["ms"], row["plain_ms"] = ms, plain_ms
+        del inv, d, mask, x
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _run_cli(args: list[str]) -> tuple[str, dict]:
+    from geneo4petsc_tpu_torch import cli
+
+    buf = io.StringIO()
+    rc = cli.run(args, out=buf)
+    log = buf.getvalue()
+    check(rc == 0, f"CLI exited {rc}:\n{log}")
+    m = _RE_SOLVE.search(log)
+    check(m is not None, f"no solve line in the CLI output:\n{log}")
+    info = {"status": m.group(1), "reason": m.group(2),
+            "its": int(m.group(3)), "true_res": float(m.group(4))}
+    md = _RE_DOF.search(log)
+    info["n_dof"] = int(md.group(1)) if md else None
+    me = _RE_DIME.search(log)
+    if me:
+        info["dim_e"], info["nicolaides"] = int(me.group(1)), int(me.group(2))
+    return log, info
+
+
+def phase_small() -> None:
+    _, on_cpu = _run_cli(SMALL_ARGS + ["--device", "cpu"])
+    _, on_cuda = _run_cli(SMALL_ARGS + ["--device", "cuda"])
+    print(f"[small] laplacian 32x32, 8 domains: cpu {on_cpu['its']} its "
+          f"{on_cpu['reason']} true_res {on_cpu['true_res']:g}; cuda "
+          f"{on_cuda['its']} its {on_cuda['reason']} true_res "
+          f"{on_cuda['true_res']:g}", flush=True)
+    check(on_cpu["status"] == "converged", "small case did not converge")
+    check((on_cpu["its"], on_cpu["reason"])
+          == (on_cuda["its"], on_cuda["reason"]),
+          "small case: cpu and cuda disagree on iterations or reason")
+
+
+def phase_slice() -> dict:
+    import torch
+
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+
+    torch.cuda.reset_peak_memory_stats()
+    lk.fused_local_solve.launches = 0
+    lk.block_matvec.launches = 0
+    t0 = time.perf_counter()
+    log, info = _run_cli(SLICE_ARGS + ["--device", "cuda", "--timing"])
+    wall = time.perf_counter() - t0
+    launches = {"fused_local_solve": lk.fused_local_solve.launches,
+                "block_matvec": lk.block_matvec.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for line in log.splitlines():
+        if line.startswith(("INFO", "WRNG", "TIME", "      ")):
+            print(f"[slice] {line}", flush=True)
+    print(f"[slice] wall {wall:.2f} s, peak device memory {peak_gb:.2f} GB, "
+          f"launches {launches}", flush=True)
+    its = info["its"]
+    check(info["reason"] == "KSP_CONVERGED_RTOL",
+          f"slice did not converge: {info['reason']}")
+    check(info["n_dof"] == SLICE_DOF, f"slice DOFs {info['n_dof']}")
+    check(info.get("dim_e") == SLICE_DIM_E, f"slice dim_e {info.get('dim_e')}")
+    check(info.get("nicolaides") == SLICE_NICOLAIDES,
+          f"slice nicolaides {info.get('nicolaides')}")
+    check(abs(its - SLICE_ITS) <= 1, f"slice iterations {its}")
+    check(info["true_res"] <= 1e-9, f"slice true residual {info['true_res']}")
+    # the wrappers launch a kernel only for CUDA tensors, so these counts
+    # also show that the solve's vectors lived on the card
+    check(launches["fused_local_solve"] >= its,
+          f"K1 launched {launches['fused_local_solve']} < {its} times")
+    check(launches["block_matvec"] >= 2 * its,
+          f"K2 launched {launches['block_matvec']} < {2 * its} times")
+    check(peak_gb >= 4.0, f"peak device memory {peak_gb:.2f} GB: the "
+                          "operator blocks did not live on the card")
+    return launches
+
+
+def main() -> int:
+    sys.path.insert(0, HERE)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 1
+    try:
+        import geneo4petsc_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: geneo4petsc_tpu_torch not found next to this "
+              "script; run it from the repository root", file=sys.stderr)
+        return 1
+
+    phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    phase_small()
+    launches = phase_slice()
+
+    sources = {"fused_local_solve": ("geneo4petsc_tpu_torch/csrc/"
+                                     "fused_local_solve.cu",
+                                     "geneo4petsc_tpu/ops/pallas_kernels.py:90"),
+               "block_matvec": ("geneo4petsc_tpu_torch/csrc/block_matvec.cu",
+                                "geneo4petsc_tpu/ops/pallas_kernels.py:125")}
+    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches[name], **kernels[name]}
+            for name, (src, rep) in sources.items()]
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""Carry state across from the JAX package.
+
+The JAX package's ``SubdomainBatch`` and ``GenEOPreconditioner`` are
+handed over as NumPy arrays (their data leaves) plus their static fields,
+and rebuilt here as the port's objects on a given device, so both
+packages can apply the very same preconditioner.  Only NumPy arrays
+cross: nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..assembly.assemble import SubdomainBatch, batch_from_host
+from ..precond.geneo import GenEOPreconditioner
+
+_BATCH_KEYS = ("gids", "mask", "mult", "a_neu", "a_dir")
+PC_META = ("lvl1", "lvl2", "hybrid", "eff_hybrid", "dim_e", "k_max",
+           "l1_kind")
+
+
+def batch_from_arrays(d: dict, device) -> SubdomainBatch:
+    """``d``: the batch leaves ``gids``, ``mask``, ``mult``, ``a_neu`` and
+    ``a_dir`` (None allowed) as arrays, and ``n_dof``.  The dtype follows
+    ``a_neu``."""
+    missing = [k for k in (*_BATCH_KEYS, "n_dof") if k not in d]
+    if missing:
+        raise KeyError(f"batch_from_arrays: missing {missing}")
+    a_neu = np.asarray(d["a_neu"])
+    dtype = torch.from_numpy(np.empty(0, a_neu.dtype)).dtype
+    a_dir = None if d["a_dir"] is None else np.asarray(d["a_dir"])
+    return batch_from_host(np.asarray(d["gids"]), np.asarray(d["mask"]),
+                           np.asarray(d["mult"]), a_neu, a_dir,
+                           int(d["n_dof"]), device, dtype)
+
+
+def pc_from_arrays(d: dict, meta: dict, device) -> GenEOPreconditioner:
+    """``d``: the batch leaves (see batch_from_arrays) plus ``l1_factor``
+    (a (LU, pivots) pair for l1_kind "lu", pivots 0-based as SciPy and
+    JAX give them), ``pou``, ``z_loc``, ``colids``, ``e_evecs``,
+    ``e_eig_inv`` and ``x0`` (None where the preconditioner has none);
+    ``meta``: the static fields named in PC_META."""
+    missing = [k for k in PC_META if k not in meta]
+    if missing:
+        raise KeyError(f"pc_from_arrays: missing meta {missing}")
+    batch = batch_from_arrays(d, device)
+    dtype = batch.dtype
+
+    def put(a, dt=dtype):
+        if a is None:
+            return None
+        return torch.tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    if meta["l1_kind"] == "lu":
+        lu, piv = d["l1_factor"]
+        l1_factor = (put(lu), put(np.asarray(piv) + 1, torch.int32))
+    else:
+        l1_factor = put(d["l1_factor"])
+    return GenEOPreconditioner(
+        lvl1=str(meta["lvl1"]), lvl2=int(meta["lvl2"]),
+        hybrid=bool(meta["hybrid"]), eff_hybrid=bool(meta["eff_hybrid"]),
+        dim_e=int(meta["dim_e"]), k_max=int(meta["k_max"]),
+        l1_kind=str(meta["l1_kind"]), batch=batch, l1_factor=l1_factor,
+        pou=put(d.get("pou")), z_loc=put(d.get("z_loc")),
+        colids=put(d.get("colids"), torch.int64),
+        e_evecs=put(d.get("e_evecs")), e_eig_inv=put(d.get("e_eig_inv")),
+        x0=put(d["x0"]))

@@ -1,0 +1,174 @@
+"""End-to-end solves of the PyTorch port against the JAX package and the
+pinned iteration counts (tst/golden/iteration_counts.json).
+
+Tolerances: iteration counts and reasons are equal; solutions agree to
+1e-6 relative, the size of a few rtol-converged Krylov steps' roundoff
+differences between the two packages' summation orders."""
+
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from geneo4petsc_tpu import cli as jax_cli
+from geneo4petsc_tpu.config import DriverOptions as JaxDriverOptions
+from geneo4petsc_tpu.config import GenEOOptions as JaxGenEOOptions
+from geneo4petsc_tpu.config import KSPOptions as JaxKSPOptions
+from geneo4petsc_tpu.models import laplacian as jax_laplacian
+from geneo4petsc_tpu.solver import solve_mesh as jax_solve_mesh
+from geneo4petsc_tpu_torch import cli
+from geneo4petsc_tpu_torch.config import DriverOptions, GenEOOptions, KSPOptions
+from geneo4petsc_tpu_torch.models import laplacian
+from geneo4petsc_tpu_torch.solver import solve_mesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tst", "golden", "iteration_counts.json")
+GEN_ARGS = "--size 12 --dim 2 --kappa 100. minmax"
+
+_RE_SOLVE = re.compile(r"INFO: solve - (converged|diverged) \(([A-Z_]+)\), "
+                       r"(\d+) iteration\(s\)")
+_RE_DIME = re.compile(r"real dimE (\d+) .*nicolaides (\d+)")
+
+
+def _opts(mod_geneo, mod_ksp, mod_drv, lvl1, lvl2, ksp_type, dls1):
+    g = mod_geneo()
+    g.lvl1, g.lvl2 = lvl1, lvl2
+    g.dls1.type = dls1
+    return (g, mod_ksp(type=ksp_type, rtol=1e-8),
+            mod_drv(add_overlap=1))
+
+
+# the unpreconditioned solve runs on a constant coefficient: on the
+# high-contrast one its iteration count hangs on roundoff in either package
+@pytest.mark.parametrize("gen_args,ksp_type,pc_type,lvl1,lvl2,dls1", [
+    (GEN_ARGS, "cg", "geneo", "ASM", "E1", "inverse_pallas"),
+    (GEN_ARGS, "cg", "geneo", "SRAS", "H1", "cholesky"),
+    (GEN_ARGS, "gmres", "geneo", "SORAS", "2", "cholesky"),
+    ("--size 12 --dim 2", "cg", "none", "ASM", "0", "cholesky"),
+])
+def test_solve_mesh_matches_jax(gen_args, ksp_type, pc_type, lvl1, lvl2,
+                                dls1):
+    ref = jax_solve_mesh(
+        jax_laplacian.get_input(gen_args), n_dom=4, pc_type=pc_type,
+        **dict(zip(("geneo", "ksp", "driver"), _opts(
+            JaxGenEOOptions, JaxKSPOptions, JaxDriverOptions, lvl1, lvl2,
+            ksp_type, dls1))))
+    got = solve_mesh(
+        laplacian.get_input(gen_args), torch.device("cpu"), n_dom=4,
+        pc_type=pc_type, **dict(zip(("geneo", "ksp", "driver"), _opts(
+            GenEOOptions, KSPOptions, DriverOptions, lvl1, lvl2, ksp_type,
+            dls1))))
+    assert (got.its, got.result.reason) == (ref.its, int(ref.result.reason))
+    assert got.converged
+    assert np.linalg.norm(got.x - ref.x) <= 1e-6 * np.linalg.norm(ref.x)
+    hist = got.result.history.numpy()
+    np.testing.assert_array_equal(np.isnan(hist),
+                                  np.isnan(np.asarray(ref.result.history)))
+
+
+def _golden_cases():
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    return sorted((k, v) for k, v in golden.items()
+                  if k.startswith("laplacian-") and "-metis=dual" in k
+                  and "pc=geneo" in k)
+
+
+def _golden_args(name: str) -> list[str]:
+    """The CLI arguments tst/iters.py uses for one golden entry."""
+    m = re.search(r"pc=geneo(ASM|SORAS)([HE]?\d)", name)
+    lvl1, lvl2 = m.group(1), m.group(2)
+    args = ["--inpLibA", "laplacian",
+            "--inpLibArg", "--size#10#--weakScaling#1#--dim#2",
+            "--nbPart", "2", "--metisDual", "--device", "cpu",
+            "-ksp_rtol", "1.e-05", "-ksp_atol", "1.e-05",
+            "-ksp_max_it", "1000", "-ksp_gmres_restart", "1000",
+            "-pc_type", "geneo", "-geneo_lvl", f"{lvl1},{lvl2}"]
+    if "-overlap1" in name:
+        args += ["--addOverlap", "1"]
+    if "-offload" in name:
+        args += ["-geneo_offload"]
+    if lvl2 != "0":
+        tg = ("0.2", "12.") if "-tau=0.2" in name else ("0.1", "8.")
+        args += ["-geneo_tau", tg[0], "-geneo_gamma", tg[1]]
+    if lvl1 == "SORAS":
+        args += ["-geneo_optim", "0.00"]
+    return args
+
+
+@pytest.mark.parametrize("name,want", _golden_cases(),
+                         ids=[k for k, _ in _golden_cases()])
+def test_cli_reproduces_golden_counts(name, want):
+    buf = io.StringIO()
+    assert cli.run(_golden_args(name), out=buf) == 0
+    log = buf.getvalue()
+    m = _RE_SOLVE.search(log)
+    assert m is not None and m.group(1) == "converged", log
+    got = {"its": int(m.group(3))}
+    md = _RE_DIME.search(log)
+    if md is not None:
+        got["dim_e"], got["nicolaides"] = int(md.group(1)), int(md.group(2))
+    assert got == want
+
+
+def test_cli_info_lines_match_jax():
+    args = ["--inpLibA", "laplacian", "--inpLibArg",
+            "--size#12#--dim#2#--kappa#1000.#minmax", "--nbPart", "4",
+            "--addOverlap", "1", "-pc_type", "geneo", "-geneo_lvl", "ASM,E1",
+            "-dls1_type", "inverse_pallas", "-ksp_type", "cg",
+            "-ksp_rtol", "1e-8", "--verbose", "1"]
+    ref, got = io.StringIO(), io.StringIO()
+    assert jax_cli.run(args, out=ref) == 0
+    assert cli.run(args + ["--device", "cpu"], out=got) == 0
+
+    def info(log):
+        return [ln for ln in log.splitlines()
+                if ln.startswith(("INFO", "WRNG"))]
+
+    assert info(got.getvalue()) == info(ref.getvalue())
+    assert len(info(got.getvalue())) == 5
+    assert "The solution X is:" in got.getvalue()
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--structured", "2,2,1"], "items 12-16"),
+    (["--nbDevices", "2"], "item 19"),
+    (["--debug", "log"], "item 11"),
+    (["-geneo_dbg", "log,1"], "item 11"),
+    (["-geneo_chk", "1"], "item 11"),
+    (["-els2_type", "lobpcg"], "item 10"),
+    (["-pc_type", "bjacobi"], "item 9"),
+    (["-pc_type", "mg"], "item 9"),
+])
+def test_cli_rejects_unported_options(extra, item, capsys):
+    args = ["--inpLibA", "laplacian", "--inpLibArg", "--size#4#--dim#2",
+            "--device", "cpu", "-pc_type", "geneo"] + extra
+    assert cli.run(args, out=io.StringIO()) == 1
+    err = capsys.readouterr().err
+    assert "not ported" in err and item in err
+
+
+def test_cli_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.run(["--inpLibA", "laplacian", "--inpLibArg", "--size#4#--dim#2",
+                 "-pc_type", "geneo"], out=io.StringIO())
+
+
+def test_module_entry_point_runs():
+    proc = subprocess.run(
+        [sys.executable, "-m", "geneo4petsc_tpu_torch", "--inpLibA",
+         "laplacian", "--inpLibArg", "--size#6#--dim#2", "--nbPart", "2",
+         "-pc_type", "geneo", "-geneo_lvl", "ASM,1", "-ksp_type", "cg",
+         "--device", "cpu", "--timing"],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stderr
+    assert "INFO: solve - converged" in proc.stdout
+    assert "TIME: total time" in proc.stdout
