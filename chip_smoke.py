@@ -9,9 +9,17 @@ with a non-zero exit code and no result line:
 2. build    — compile the CUDA kernels of geneo4petsc_tpu_torch/csrc/
               (nvcc, sm_90a) and the native partitioner (native/kway.cpp).
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the slice's shape [1024, 496, 496] float64 and a ragged
-              [3, 37, 37] case in float64 and float32; max relative error
-              <= 1e-12 (float64) / 1e-5 (float32); times by CUDA events.
+              at the slice's shape [1024, 496, 496] float64 and at shapes
+              that reach both of its paths (the bulk-copy ring and the
+              direct loads) and their edges: odd n, n no multiple of 32,
+              fewer domains than SMs, a domain count no multiple of the
+              grid, a large n, float32 with n % 4 of 0 and 2, and a batch
+              whose base pointer is 8- but not 16-byte aligned; max
+              relative error <= 1e-12 (float64) / 1e-5 (float32), and
+              repeated launches give the same bits.  At the slice's shape
+              the kernel and torch.bmm (the library call for the same
+              product, which the port never calls on the card) are timed
+              in turns by CUDA events, with the bound from the bytes.
 4. small    — the same small GenEO solve through the CLI on cpu and on
               cuda: equal iteration counts and reasons.
 5. slice    — the generic GenEO path at 262,144 DOF through the CLI
@@ -20,8 +28,8 @@ with a non-zero exit code and no result line:
               checks convergence, dim_e, Nicolaides count, iterations
               and that the main path launched both kernels.
 
-It then prints one JSON line with every kernel's launches, error and
-times, and last the result line
+It then prints one JSON line with every kernel's launches, error, path,
+times and bound, and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -52,6 +60,23 @@ SMALL_ARGS = ["--inpLibA", "laplacian", "--inpLibArg", "--size#32#--dim#2",
               "-ksp_type", "cg", "-ksp_rtol", "1e-8"]
 MAIN_SHAPE = (1024, 496)   # (n_dom, n_max) of the slice
 TOL = {"float64": 1e-12, "float32": 1e-5}
+# (n_dom, n), dtype, base pointer 16-byte aligned, the path it must take
+KERNEL_CASES = [
+    (MAIN_SHAPE, "float64", True, "ring"),
+    ((3, 37), "float64", True, "direct"),       # odd n
+    ((3, 37), "float32", True, "direct"),
+    ((7, 50), "float64", True, "ring"),         # n % 32 != 0, few domains
+    ((5, 66), "float32", True, "direct"),       # n % 4 == 2
+    ((5, 64), "float32", True, "ring"),         # n % 4 == 0
+    ((133, 496), "float64", True, "ring"),      # n_dom % grid != 0
+    ((2, 3000), "float64", True, "ring"),       # large n
+    ((7, 50), "float64", False, "direct"),      # misaligned base pointer
+    (MAIN_SHAPE, "float64", False, "direct"),
+]
+# Published peaks of the H100 SXM (NVIDIA's data sheet): device memory
+# rate, and float64 / float32 rates outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 
 _RE_SOLVE = re.compile(r"INFO: solve - (converged|diverged) \(([A-Z_]+)\), "
                        r"(\d+) iteration\(s\), residual norm \S+, "
@@ -105,71 +130,100 @@ def phase_build() -> None:
           f" native partitioner in {t_native:.2f} s", flush=True)
 
 
-def _time_ms(fn, reps: int) -> float:
+def _kernel_inputs(n_dom, n, dtype, aligned, rng, dev):
+    """Seeded inputs of one case.  A misaligned case puts the matrix
+    batch one element into a longer buffer: contiguous, but its base
+    pointer is no multiple of 16 bytes."""
     import torch
 
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    inv = torch.from_numpy(rng.standard_normal((n_dom, n, n))).to(dev, dtype)
+    if not aligned:
+        buf = torch.empty(inv.numel() + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(inv.flatten())
+        inv = buf[1:].view(n_dom, n, n)
+        check(inv.data_ptr() % 16 != 0 and inv.is_contiguous(),
+              "the misaligned case is aligned")
+    d = torch.from_numpy(rng.random((n_dom, n)) + 0.5).to(dev, dtype)
+    mask = torch.from_numpy(rng.random((n_dom, n)) > 0.2).to(dev)
+    x = torch.from_numpy(rng.standard_normal((n_dom, n))).to(dev, dtype)
+    return inv, d, mask, x
 
 
 def phase_kernels() -> dict:
-    """Each kernel against its plain version; returns the main-shape
-    numbers per kernel for the JSON line."""
+    """Each kernel against its plain version at every case; returns the
+    main-shape numbers per kernel for the JSON line."""
     import torch
 
     from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.utils.cuda_timing import time_in_turns
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    cases = [(MAIN_SHAPE, torch.float64, 20), ((3, 37), torch.float64, 50),
-             ((3, 37), torch.float32, 50)]
     summary = {}
-    for (n_dom, n), dtype, reps in cases:
-        inv = torch.from_numpy(rng.standard_normal((n_dom, n, n))).to(
-            dev, dtype)
-        d = torch.from_numpy(rng.random((n_dom, n)) + 0.5).to(dev, dtype)
-        mask = torch.from_numpy(rng.random((n_dom, n)) > 0.2).to(dev)
-        x = torch.from_numpy(rng.standard_normal((n_dom, n))).to(dev, dtype)
-        tol = TOL[str(dtype).removeprefix("torch.")]
-        main = (n_dom, n) == MAIN_SHAPE
-        bytes_moved = inv.numel() * inv.element_size()
+    for (n_dom, n), dtype_name, aligned, want_path in KERNEL_CASES:
+        dtype = getattr(torch, dtype_name)
+        inv, d, mask, x = _kernel_inputs(n_dom, n, dtype, aligned, rng, dev)
+        tol = TOL[dtype_name]
+        where = (f"[{n_dom},{n},{n}] {dtype_name}"
+                 f"{'' if aligned else ' misaligned'}")
+        path = lk.plan_for(inv).path
+        check(path == want_path, f"{where} took the {path} path, "
+                                 f"expected {want_path}")
+
+        def lib():
+            return torch.bmm(inv, x.unsqueeze(-1))
+
         runs = [("fused_local_solve", f"pre={pre} post={post}",
                  lambda pre=pre, post=post: lk.fused_local_solve(
                      inv, d, mask, x, pre, post),
                  lambda pre=pre, post=post: lk.fused_local_solve_plain(
-                     inv, d, mask, x, pre, post))
+                     inv, d, mask, x, pre, post),
+                 mask.numel() + (pre or post) * d.numel() * d.element_size())
                 for pre, post in ((False, False), (True, False), (True, True))]
         runs.append(("block_matvec", "", lambda: lk.block_matvec(inv, x),
-                     lambda: lk.block_matvec_plain(inv, x)))
-        for name, variant, kern, plain in runs:
-            got, want = kern(), plain()
+                     lambda: lk.block_matvec_plain(inv, x), 0))
+        for name, variant, kern, plain, vector_bytes in runs:
+            got, again, want = kern(), kern(), plain()
             torch.cuda.synchronize()
             abs_err = float((got - want).abs().max())
             rel_err = abs_err / max(float(want.abs().max()), 1e-300)
-            ms = _time_ms(kern, reps)
-            plain_ms = _time_ms(plain, reps)
-            gbs = bytes_moved / (ms * 1e-3) / 1e9
-            print(f"[kernels] {name} {variant} [{n_dom},{n},{n}] "
-                  f"{str(dtype).removeprefix('torch.')}: max rel err "
-                  f"{rel_err:.3e} (tol {tol:g}), kernel {ms:.4f} ms "
-                  f"({gbs:.0f} GB/s of matrix), plain {plain_ms:.4f} ms",
-                  flush=True)
-            check(rel_err <= tol, f"{name} {variant} disagrees with its "
-                                  f"plain version: {rel_err:.3e} > {tol:g}")
-            if main:
+            line = (f"[kernels] {name} {variant} {where} {path}: max rel "
+                    f"err {rel_err:.3e} (tol {tol:g})")
+            check(rel_err <= tol, f"{name} {variant} {where} disagrees with "
+                                  f"its plain version: {rel_err:.3e} > {tol:g}")
+            check(torch.equal(got, again), f"{name} {variant} {where}: two "
+                                           "launches gave different bits")
+            if (n_dom, n) != MAIN_SHAPE:
+                print(line, flush=True)
+                continue
+            # every input read once, the output written once
+            moved = ((inv.numel() + 2 * x.numel()) * inv.element_size()
+                     + vector_bytes)
+            by_bytes = moved / PEAK_BYTES_PER_S * 1e3
+            by_ops = 2 * inv.numel() / PEAK_FLOPS[dtype_name] * 1e3
+            bound_ms = max(by_bytes, by_ops)
+            # in turns: library, kernel, kernel, library
+            b, k = time_in_turns(lib, kern)
+            _, p = time_in_turns(lib, plain, rounds=3)
+            share = bound_ms / k["ms"]
+            print(f"{line}; kernel {k['ms']:.4f} ms [{k['min_ms']:.4f}, "
+                  f"{k['max_ms']:.4f}], torch.bmm {b['ms']:.4f} ms "
+                  f"[{b['min_ms']:.4f}, {b['max_ms']:.4f}], plain "
+                  f"{p['ms']:.4f} ms, bound {bound_ms:.4f} ms ({moved} B), "
+                  f"share of bound {share:.3f}", flush=True)
+            check(share <= 1.0, f"{name} {where}: {k['ms']:.4f} ms is under "
+                                f"the bound {bound_ms:.4f} ms")
+            if aligned:
                 # the slice runs ASM: K1 without weights is its variant
                 row = summary.setdefault(name, {"max_abs_err": 0.0})
                 row["max_abs_err"] = max(row["max_abs_err"], abs_err)
                 if variant in ("", "pre=False post=False"):
-                    row["ms"], row["plain_ms"] = ms, plain_ms
+                    row.update(
+                        path=path, ms=k["ms"], ms_min=k["min_ms"],
+                        ms_max=k["max_ms"], library_ms=b["ms"],
+                        plain_ms=p["ms"], bound_ms=bound_ms,
+                        bound_by="bytes" if by_bytes >= by_ops
+                        else "operations", share_of_bound=share)
         del inv, d, mask, x
         torch.cuda.empty_cache()
     return summary

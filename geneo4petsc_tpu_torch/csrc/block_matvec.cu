@@ -1,13 +1,18 @@
 // K2: the batched per-subdomain product out[d, i] = sum_j A[d, i, j] x[d, j],
-// the local product of the MatIS SpMV (SubdomainBatch.matvec).
+// the local product of the MatIS SpMV (SubdomainBatch.matvec), launched
+// twice per CG iteration.
 //
 // Replaces the Pallas kernel geneo4petsc_tpu/ops/pallas_kernels.py
-// block_matvec (kernel body _block_matvec_kernel).
+// block_matvec (kernel body _block_matvec_kernel), which gives each
+// group of domains' [n, n] blocks to the TPU's matrix unit.
 //
-// Bound by memory bandwidth: each element of A is read once for two
-// flops.  The design streams A row by row with coalesced warp loads and
-// reads x[d] from shared memory, staged once per block.  Any n and any
-// number of domains; no padding of the batch.
+// On a Hopper card the product is bound by device memory: each element
+// of A is read once for two flops, so the least time is the bytes of A,
+// x and out over the card's memory rate.  The kernel is the shared
+// stream of batched_gemv.cuh with the plainest load and store: a
+// persistent ring of bulk-copied row tiles for 16-byte aligned batches,
+// direct 16-byte loads for every other.  Any n and any number of
+// domains; no padding of the batch.
 #include "batched_gemv.cuh"
 
 namespace {
@@ -15,48 +20,42 @@ namespace {
 using namespace g4p;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-block_matvec_kernel(const T* __restrict__ a, const T* __restrict__ x,
-                    T* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int64_t base = (int64_t)blockIdx.x * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) s[j] = x[base + j];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int first = warp_first_row();
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = first + r;
-    if (i >= n) break;
-    const T y = row_dot(a + (base + i) * (int64_t)n, s, n, lane);
-    if (lane == 0) out[base + i] = y;
+struct MatvecOp {
+  const T* __restrict__ x;
+  T* __restrict__ out;
+  __device__ __forceinline__ T load_x(int64_t i) const { return x[i]; }
+  __device__ __forceinline__ void store(int64_t i, T y) const { out[i] = y; }
+  // Nothing but the sum goes into a stored row, so nothing is staged.
+  __host__ __device__ static int64_t extra_bytes(int64_t) { return 0; }
+  __device__ __forceinline__ void stage(unsigned char*, int, int64_t,
+                                        int) const {}
+  __device__ __forceinline__ void store_staged(int64_t base, int j, T y,
+                                               const unsigned char*,
+                                               int) const {
+    out[base + j] = y;
   }
-}
+};
 
 template <typename T>
 cudaError_t launch(const void* a, const void* x, void* out, int64_t n_dom,
-                   int64_t n, cudaStream_t stream) {
-  auto kernel = block_matvec_kernel<T>;
-  const size_t smem = (size_t)n * sizeof(T);
-  cudaError_t err = allow_smem((const void*)kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<gemv_grid(n_dom, n), kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(x),
-      static_cast<T*>(out), (int)n);
-  return cudaGetLastError();
+                   int64_t n, const Plan& plan, cudaStream_t stream) {
+  const MatvecOp<T> op{static_cast<const T*>(x), static_cast<T*>(out)};
+  return launch_gemv(static_cast<const T*>(a), op, n_dom, n, plan, stream);
 }
 
 }  // namespace
 
 // a [n_dom, n, n], x/out [n_dom, n]: contiguous row-major device
-// tensors.  Returns the CUDA error code of the launch (0 on success).
+// tensors.  path .. smem are the plan of ops/local_kernels.py
+// (_stream_plan).  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int g4p_block_matvec(const void* a, const void* x, void* out,
                                 int64_t n_dom, int64_t n, int is_f64,
-                                void* stream) {
-  if (n_dom <= 0 || n <= 0) return (int)cudaSuccess;
+                                int path, int rows, int stages, int grid,
+                                int threads, int64_t smem, void* stream) {
+  const Plan plan{path, rows, stages, grid, threads, smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_f64 ? launch<double>(a, x, out, n_dom, n, st)
-                           : launch<float>(a, x, out, n_dom, n, st);
+  cudaError_t err = is_f64 ? launch<double>(a, x, out, n_dom, n, plan, st)
+                           : launch<float>(a, x, out, n_dom, n, plan, st);
   return (int)err;
 }

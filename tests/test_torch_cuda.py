@@ -30,14 +30,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def _data(d, n, device, dtype, seed=0):
+def _data(d, n, device, dtype, seed=0, aligned=True):
+    """Seeded inputs; ``aligned=False`` puts the matrix batch one element
+    into a longer buffer, so that its base pointer is no multiple of 16
+    bytes and the kernels must take their direct path."""
     rng = np.random.default_rng(seed)
-    inv = torch.from_numpy(rng.standard_normal((d, n, n)))
+    inv = torch.from_numpy(rng.standard_normal((d, n, n))).to(device, dtype)
     pou = torch.from_numpy(rng.random((d, n)) + 0.5)
     mask = torch.from_numpy(rng.random((d, n)) > 0.2)
     x = torch.from_numpy(rng.standard_normal((d, n)))
-    return (inv.to(device, dtype), pou.to(device, dtype), mask.to(device),
-            x.to(device, dtype))
+    if not aligned:
+        buf = torch.empty(inv.numel() + 1, dtype=dtype, device=device)
+        buf[1:].copy_(inv.flatten())
+        inv = buf[1:].view(d, n, n)
+        assert inv.data_ptr() % 16 != 0 and inv.is_contiguous()
+    return (inv, pou.to(device, dtype), mask.to(device), x.to(device, dtype))
 
 
 def _rel(got, want):
@@ -45,12 +52,28 @@ def _rel(got, want):
             / max(float(want.abs().max()), 1e-300))
 
 
+def _expected_path(inv):
+    """The ring takes batches whose base pointer and row size are
+    multiples of 16 bytes (and whose rows fit shared memory, as all of
+    these do); every other batch goes the direct path."""
+    row_bytes = inv.shape[1] * inv.element_size()
+    ring = inv.data_ptr() % 16 == 0 and row_bytes % 16 == 0
+    return "ring" if ring else "direct"
+
+
+SHAPES = [(7, 53), (1, 1), (33, 300), (3, 37), (7, 50), (5, 66), (5, 64),
+          (133, 496), (2, 3000), (1024, 496)]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("shape", [(7, 53), (1, 1), (33, 300)],
-                         ids=["7x53", "1x1", "33x300"])
-def test_kernels_match_plain(cuda, dtype, shape):
-    inv, pou, mask, x = _data(*shape, cuda, dtype)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kernels_match_plain(cuda, dtype, shape, aligned):
+    inv, pou, mask, x = _data(*shape, cuda, dtype, aligned=aligned)
+    assert lk.plan_for(inv).path == _expected_path(inv)
+    if not aligned:
+        assert lk.plan_for(inv).path == "direct"
     for pre, post in [(False, False), (True, False), (False, True),
                       (True, True)]:
         before = lk.fused_local_solve.launches
@@ -62,6 +85,31 @@ def test_kernels_match_plain(cuda, dtype, shape):
     got = lk.block_matvec(inv, x)
     assert lk.block_matvec.launches == before + 1
     assert _rel(got, lk.block_matvec_plain(inv, x)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("aligned,path", [(True, "ring"), (False, "direct")],
+                         ids=["ring", "direct"])
+def test_kernels_are_bitwise_reproducible_on_cuda(cuda, aligned, path):
+    inv, pou, mask, x = _data(133, 496, cuda, torch.float64, aligned=aligned)
+    assert lk.plan_for(inv).path == path
+    first = (lk.block_matvec(inv, x),
+             lk.fused_local_solve(inv, pou, mask, x, True, True))
+    for _ in range(3):
+        assert torch.equal(lk.block_matvec(inv, x), first[0])
+        assert torch.equal(
+            lk.fused_local_solve(inv, pou, mask, x, True, True), first[1])
+
+
+def test_kernel_refuses_a_plan_that_does_not_fit(cuda):
+    inv, _, _, x = _data(7, 50, cuda, torch.float64)
+    plan = lk.plan_for(inv)
+    assert plan.path == "ring"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        lk._block_matvec_cuda(inv, x, plan._replace(smem=plan.smem + 16))
+    odd = _data(3, 37, cuda, torch.float64)[0]
+    with pytest.raises(RuntimeError, match="CUDA error"):   # 296-byte rows
+        lk._block_matvec_cuda(odd, x[:3, :37].contiguous(),
+                              plan._replace(grid=3))
 
 
 def test_kernel_refuses_mixed_devices(cuda):
