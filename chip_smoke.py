@@ -27,6 +27,21 @@ with a non-zero exit code and no result line:
               subdomains, overlap 1, ASM,E1, inverse_pallas, CG 1e-8);
               checks convergence, dim_e, Nicolaides count, iterations
               and that the main path launched both kernels.
+6. structured-parity — the structured path (solve_structured) in float64
+              on laplacian 24^3, kappa 1e4 minmax, 2x2x2 boxes, overlap 2,
+              ASM,E1, LOBPCG cut 2, CG 1e-8, by both refinement routes:
+              per-domain dim_e and Nicolaides, outer passes and inner
+              iterations (+-1) equal to the JAX package's on the CPU,
+              true residual <= 1e-8.
+7. structured — the structured path through the CLI at the repository's
+              10,077,696-DOF case (laplacian --size 216 --dim 3 --kappa
+              10000. minmax, --structured 4,4,4, overlap 2, ASM,E1, LOBPCG
+              cut 2 max_it 50, float32 CG inside float64 refinement to
+              1e-8): converged, true residual <= 1e-8 (and again on the
+              host), max error against x = 1..n, dim_e, iterations, TIME
+              lines and peak device memory, beside the JAX package's TPU
+              record as a reference.  K1 and K2 are not on this path:
+              their counts, zeroed before it, stay 0.
 
 It then prints one JSON line with every kernel's launches, error, path,
 times and bound, and last the result line
@@ -78,11 +93,46 @@ KERNEL_CASES = [
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 
+# structured-parity: the JAX package's values on the CPU (float64), from
+#   python -c "import jax; jax.config.update('jax_enable_x64', True)
+#   import jax.numpy as jnp
+#   from geneo4petsc_tpu.config import GenEOOptions, KSPOptions
+#   from geneo4petsc_tpu.structured.grid import laplacian_grid
+#   from geneo4petsc_tpu.structured.solve import solve_structured
+#   g = GenEOOptions(); g.lvl1, g.lvl2 = 'ASM', 'E1'
+#   g.els2.type, g.els2.max_it, g.cut = 'lobpcg', 50, 2
+#   for dr in (False, True):
+#       o = solve_structured(laplacian_grid(24, dim=3, kappa_max=1e4,
+#           interp='minmax'), (2, 2, 2), 2, geneo=g,
+#           ksp=KSPOptions(type='cg'), tol=1e-8, dtype=jnp.float64,
+#           device_refine=dr)
+#       print(o.refined.outer_its, o.refined.inner_its,
+#             list(o.stats.real_dim_e), list(o.stats.nicolaides), o.true_res)"
+# run from the repository root with JAX on the CPU.
+PARITY_GRID = dict(size=24, dim=3, kappa_max=1e4, interp="minmax")
+PARITY_DOMS, PARITY_OVERLAP = (2, 2, 2), 2
+PARITY_DIM_E, PARITY_NICOLAIDES = [1] * 8, [0] * 8
+PARITY_JAX = {"host": {"outer": 2, "inner": 34, "true_res": 7.387e-11},
+              "device": {"outer": 2, "inner": 29, "true_res": 2.357e-10}}
+STRUCTURED_ARGS = ["--structured", "4,4,4", "--inpLibA", "laplacian",
+                   "--inpLibArg", "--size#216#--dim#3#--kappa#10000.#minmax",
+                   "--addOverlap", "2", "-pc_type", "geneo",
+                   "-geneo_lvl", "ASM,E1", "-els2_type", "lobpcg",
+                   "-els2_eps_max_it", "50", "-geneo_cut", "2",
+                   "-ksp_type", "cg", "-ksp_rtol", "1e-8", "--timing"]
+STRUCTURED_DOF = 10077696
+# the JAX package's record of this case on a TPU v5e (BENCH_r05.json):
+# a reference point, not a target
+JAX_TPU_RECORD = "dim_e 113, 140 inner / 3 outer iterations, true_res 1.33e-9"
+
 _RE_SOLVE = re.compile(r"INFO: solve - (converged|diverged) \(([A-Z_]+)\), "
                        r"(\d+) iteration\(s\), residual norm \S+, "
                        r"\|\| AX - B \|\| / \|\| B \|\| (\S+)")
 _RE_DOF = re.compile(r"INFO: nb DOFs (\d+),")
 _RE_DIME = re.compile(r"real dimE (\d+) .*nicolaides (\d+)")
+_RE_REFINED = re.compile(r"INFO: solve - (converged|diverged) \(refined, "
+                         r"(\d+) outer\), (\d+) iteration\(s\), "
+                         r"\|\| AX - B \|\| / \|\| B \|\| (\S+)")
 
 
 class SmokeFailure(RuntimeError):
@@ -100,6 +150,7 @@ def phase_device() -> str:
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -300,6 +351,120 @@ def phase_slice() -> dict:
     return launches
 
 
+def phase_structured_parity() -> None:
+    import torch
+
+    from geneo4petsc_tpu_torch.config import GenEOOptions, KSPOptions
+    from geneo4petsc_tpu_torch.structured.grid import laplacian_grid
+    from geneo4petsc_tpu_torch.structured.solve import solve_structured
+
+    for route, device_refine in (("host", False), ("device", True)):
+        g = GenEOOptions()
+        g.lvl1, g.lvl2 = "ASM", "E1"
+        g.els2.type, g.els2.max_it, g.cut = "lobpcg", 50, 2
+        t0 = time.perf_counter()
+        out = solve_structured(laplacian_grid(**PARITY_GRID), PARITY_DOMS,
+                               PARITY_OVERLAP, geneo=g,
+                               ksp=KSPOptions(type="cg"), tol=1e-8,
+                               dtype=torch.float64, device="cuda",
+                               device_refine=device_refine)
+        wall = time.perf_counter() - t0
+        want = PARITY_JAX[route]
+        dim_e = [int(v) for v in out.stats.real_dim_e]
+        nic = [int(v) for v in out.stats.nicolaides]
+        print(f"[structured-parity] {route} refinement: {out.refined.outer_its}"
+              f" outer / {out.refined.inner_its} inner (JAX on the CPU: "
+              f"{want['outer']} / {want['inner']}), dim_e {dim_e}, "
+              f"nicolaides {sum(nic)}, true_res {out.true_res:.3e} (JAX "
+              f"{want['true_res']:.3e}), {wall:.2f} s", flush=True)
+        check(out.pc.z.device.type == "cuda", "the coarse basis is not on "
+                                              "the card")
+        check(dim_e == PARITY_DIM_E, f"structured-parity dim_e {dim_e}")
+        check(nic == PARITY_NICOLAIDES, f"structured-parity nicolaides {nic}")
+        check(out.refined.outer_its == want["outer"],
+              f"structured-parity outer passes {out.refined.outer_its}")
+        check(abs(out.refined.inner_its - want["inner"]) <= 1,
+              f"structured-parity inner iterations {out.refined.inner_its}")
+        check(out.converged and out.true_res <= 1e-8,
+              f"structured-parity true residual {out.true_res}")
+
+
+def phase_structured() -> dict:
+    import torch
+
+    from geneo4petsc_tpu_torch import cli
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.structured import solve as ssolve
+    from geneo4petsc_tpu_torch.structured.grid import laplacian_grid
+
+    # keep the CLI's solve output, for the error against x = 1..n
+    seen = {}
+    solve = ssolve.solve_structured
+
+    def keep(*args, **kw):
+        seen["out"] = solve(*args, **kw)
+        return seen["out"]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lk.fused_local_solve.launches = 0
+    lk.block_matvec.launches = 0
+    ssolve.solve_structured = keep
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.run(STRUCTURED_ARGS + ["--device", "cuda"], out=buf)
+    finally:
+        ssolve.solve_structured = solve
+    wall = time.perf_counter() - t0
+    launches = {"fused_local_solve": lk.fused_local_solve.launches,
+                "block_matvec": lk.block_matvec.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log = buf.getvalue()
+    for line in log.splitlines():
+        if line.startswith(("INFO", "WRNG", "TIME", "      ")):
+            print(f"[structured] {line}", flush=True)
+    check(rc == 0, f"structured CLI exited {rc}:\n{log}")
+    m = _RE_REFINED.search(log)
+    check(m is not None, f"no solve line in the structured output:\n{log}")
+    md, me = _RE_DOF.search(log), _RE_DIME.search(log)
+    out = seen["out"]
+    n = STRUCTURED_DOF
+    x = np.asarray(out.x, np.float64)
+    err = float(np.max(np.abs(x - np.arange(1.0, n + 1)))) / n
+    t0 = time.perf_counter()
+    grid = laplacian_grid(216, dim=3, kappa_max=10000.0, interp="minmax")
+    host_res = float(np.linalg.norm(out.b - grid.matvec(x))
+                     / np.linalg.norm(out.b))
+    t_host = time.perf_counter() - t0
+    info = {"dim_e": int(me.group(1)), "nicolaides": int(me.group(2)),
+            "outer": int(m.group(2)), "inner": int(m.group(3)),
+            "true_res": float(m.group(4)), "wall_s": wall,
+            "peak_gb": peak_gb}
+    print(f"[structured] {n} DOF on the card: {info['inner']} inner / "
+          f"{info['outer']} outer iterations, dim_e {info['dim_e']}, "
+          f"true_res {out.true_res:.3e} (host float64 recheck "
+          f"{host_res:.3e} in {t_host:.1f} s), max |x - x_true| / n "
+          f"{err:.3e}; CLI wall {wall:.2f} s, peak device memory "
+          f"{peak_gb:.2f} GB; K1/K2 launches on this path {launches}",
+          flush=True)
+    print(f"[structured] reference, not a target — the JAX package on a "
+          f"TPU v5e (BENCH_r05.json): {JAX_TPU_RECORD}", flush=True)
+    check(md is not None and int(md.group(1)) == n,
+          f"structured DOFs {md and md.group(1)}")
+    check(m.group(1) == "converged", "the structured case did not converge")
+    check(out.true_res <= 1e-8 and host_res <= 1e-8,
+          f"structured true residual {out.true_res} / host {host_res}")
+    check(bool(np.isfinite(x).all()), "non-finite solution")
+    check(out.pc.z is not None and out.pc.z.device.type == "cuda",
+          "the preconditioner did not live on the card")
+    check(launches == {"fused_local_solve": 0, "block_matvec": 0},
+          f"K1/K2 launched on the structured path: {launches}")
+    check(peak_gb >= 1.0, f"peak device memory {peak_gb:.2f} GB: the "
+                          "structured operators did not live on the card")
+    return info
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -323,6 +488,8 @@ def main() -> int:
     kernels = phase_kernels()
     phase_small()
     launches = phase_slice()
+    phase_structured_parity()
+    phase_structured()
 
     sources = {"fused_local_solve": ("geneo4petsc_tpu_torch/csrc/"
                                      "fused_local_solve.cu",

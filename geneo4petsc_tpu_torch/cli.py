@@ -47,6 +47,8 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
   --metisNodal,   partition by nodes (elements may belong to several partitions)
   --addOverlap L, add L layers of overlap at each domain border
   --nbPart N,     number of subdomains (the reference's mpirun -n N)
+  --structured GX,GY,GZ, structured scale path on a GX x GY x GZ box
+                  decomposition (--inpLibA laplacian|heat, -pc_type geneo)
   --device D,     cuda (default) or cpu
   --verbose V,    V=1: dump X; V=2: dump A, B and X
   --timing,       print timing
@@ -60,18 +62,22 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
   -geneo_optim A  -geneo_tau T  -geneo_gamma G  -geneo_cst  -geneo_cut C
   -geneo_no_syl  -geneo_offload
   -dls1_type T         cholesky | lu | inverse | inverse_pallas
+  -els2_type T         eigh | lobpcg (lobpcg: with --structured)
+  -els2_eps_max_it N  -els2_eps_tol T
 """
 
 # options of the JAX CLI whose code is not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "--structured": "Queue 1, items 12-16 (structured scale path)",
+    "--structured --inpLibA elasticity": "Queue 1, item 18 (elastic "
+                                         "backend)",
     "--nbDevices": "Queue 1, item 19 (multi-GPU)",
     "--debug": "Queue 1, item 11 (debug dumps)",
     "-geneo_dbg": "Queue 1, item 11 (debug dumps)",
     "-geneo_chk": "Queue 1, item 11 (setup checks)",
     "-pc_type bjacobi": "Queue 1, item 9 (comparison PCs)",
     "-pc_type mg": "Queue 1, item 9 (comparison PCs)",
-    "-els2_type lobpcg": "Queue 1, item 10 (LOBPCG path)",
+    "-els2_type lobpcg": "Queue 1, item 10 (LOBPCG path of the generic "
+                         "solve; it runs with --structured)",
 }
 
 
@@ -101,9 +107,10 @@ def parse_args(argv: list[str]):
         a = argv[i]
         if a == "--help":
             raise CLIError("__help__")
-        elif a in ("--structured", "--nbDevices", "--debug", "-geneo_dbg",
-                   "-geneo_chk"):
+        elif a in ("--nbDevices", "--debug", "-geneo_dbg", "-geneo_chk"):
             raise _not_ported(a)
+        elif a == "--structured":
+            i += 1; drv.structured = need(i, a)
         elif a == "--inpFileA":
             i += 1; drv.inp_file_a = need(i, a)
         elif a == "--inpEps":
@@ -184,8 +191,6 @@ def parse_args(argv: list[str]):
             v = need(i, a)
             gen.els2.type = {"arpack": "eigh", "krylovschur": "lobpcg",
                              "lapack": "eigh"}.get(v, v)
-            if gen.els2.type == "lobpcg":
-                raise _not_ported("-els2_type lobpcg")
         elif a == "-els2_eps_max_it":
             i += 1; gen.els2.max_it = int(need(i, a))
         elif a == "-els2_eps_tol":
@@ -217,6 +222,10 @@ def parse_args(argv: list[str]):
 
         i += 1
 
+    if gen.els2.type == "lobpcg" and not drv.structured:
+        raise _not_ported("-els2_type lobpcg")
+    if drv.structured and drv.inp_lib_a == "elasticity":
+        raise _not_ported("--structured --inpLibA elasticity")
     if pc_type is None:
         pc_type = "bjacobi"  # PETSc parallel default PC
     if pc_type in ("bjacobi", "mg"):
@@ -245,6 +254,9 @@ def run(argv: list[str], out=sys.stdout) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu to run on the host)")
+    if drv.structured:
+        return _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
+                               user_cmd)
 
     if gen.offload:
         # surfaced on stderr (stdout is the golden-diffed protocol): the
@@ -307,6 +319,109 @@ def run(argv: list[str], out=sys.stdout) -> int:
     if drv.timing:
         _print_timing(res, drv, gen, pc_type, timers, out,
                       time.perf_counter() - t_total)
+    if drv.cmd_line:
+        print(f"\nCMD: {user_cmd}", file=out)
+    return 0  # the reference returns 0 either way; the result is in the log
+
+
+def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
+                    user_cmd) -> int:
+    """--structured GX,GY,GZ: drive the structured scale backend
+    (structured/) with the standard INFO/TIME protocol.
+
+    Tensor-grid generators: laplacian (separable kappa -> exact FDM local
+    solves) and heat (mass term -> block-tridiagonal or inexact local
+    solvers, structured/solvers.py)."""
+    from .models import _grid
+    from .structured.grid import heat_grid, laplacian_grid
+    from .structured.solve import solve_structured
+
+    if pc_type != "geneo" or drv.inp_lib_a not in ("laplacian", "heat"):
+        print("Error: --structured requires --inpLibA laplacian|heat and "
+              "-pc_type geneo", file=sys.stderr)
+        return 1
+    try:
+        dom_grid = tuple(int(t) for t in drv.structured.split(","))
+        if len(dom_grid) != 3:
+            raise ValueError
+    except ValueError:
+        print("Error: invalid option --structured (want GX,GY,GZ)",
+              file=sys.stderr)
+        return 1
+
+    opt = _grid.parse_args(drv.inp_lib_arg.replace("#", " "), {
+        "size": int, "weakScaling": int, "dim": int, "inpEps": float,
+        "kappa": tuple, "lbd": float, "dt": float, "verbose": bool,
+        "debug": bool,
+    })
+    kappa_max, interp = opt.get("kappa", (1.0, ""))
+    overlap = max(drv.add_overlap, 1)
+    timers = Timers()
+    kw = dict(dim=opt.get("dim", 3), kappa_max=kappa_max, interp=interp,
+              inp_eps=opt.get("inpEps", drv.inp_eps),
+              weak_scaling=opt.get("weakScaling", 1))
+    if drv.inp_lib_a == "heat":
+        grid = heat_grid(opt.get("size", 4), lbd=opt.get("lbd", 1.0),
+                         dt=opt.get("dt", 0.1), **kw)
+    else:
+        grid = laplacian_grid(opt.get("size", 4), **kw)
+    try:
+        res = solve_structured(grid, dom_grid, overlap, geneo=gen, ksp=ksp,
+                               tol=ksp.rtol, timers=timers, device=device)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    n_edges = sum((grid.shape[a] - 1) * (grid.n_nodes // max(grid.shape[a], 1))
+                  for a in range(grid.dim))
+    n_elems = n_edges + grid.n_nodes // grid.shape[grid.dim - 1]
+    nnz = grid.n_nodes + 2 * n_edges
+
+    mode = f"structured {dom_grid[0]}x{dom_grid[1]}x{dom_grid[2]}"
+    print(f"INFO: nb DOFs {grid.n_nodes}, nb elements {n_elems}, "
+          f"nnz coefs {nnz}, nb partitions {res.n_dom}, overlap {overlap}, "
+          f"{mode}", file=out)
+    print(f"INFO: {ksp.type} ksp, eps rel {ksp.rtol:.1e}, "
+          f"eps abs {ksp.atol:.1e}, max iterations {ksp.max_it}", file=out)
+    l1_kind = {"FDMFactor": "fdm", "BTSolver": "block-tridiag",
+               "PCGSolver": "inexact-pcg"}[type(res.pc.l1).__name__]
+    line = f"INFO: {gen.name} pc, L1 {l1_kind}"
+    if gen.lvl2_num:
+        line += f", tau {gen.tau:.2f}, L2 {gen.els2.type} shift-invert"
+        if gen.lvl2_num == 2:
+            line += f", gamma {gen.gamma:.2f}"
+    print(line, file=out)
+    if not drv.short_res:
+        st = res.stats
+        print(f"INFO: setup - estim dimE {st.estim_dim_e.sum()} (local: "
+              f"min {st.estim_dim_e.min()}, max {st.estim_dim_e.max()}), "
+              f", real dimE {st.real_dim_e.sum()} (local: "
+              f"min {st.real_dim_e.min()}, max {st.real_dim_e.max()})"
+              f", nicolaides {st.nicolaides.sum()}", file=out)
+    status = "converged" if res.converged else "diverged"
+    if drv.short_res:
+        print(f"INFO: solve - {status}", file=out)
+    else:
+        print(f"INFO: solve - {status} (refined, "
+              f"{res.refined.outer_its} outer), "
+              f"{res.refined.inner_its} iteration(s), "
+              f"|| AX - B || / || B || {res.true_res:.10f}", file=out)
+    if drv.verbose >= 1:
+        print(pf.format_vec(res.x, res.n_dom, "X").replace(
+            "The vector X is:", "The solution X is:"), file=out)
+    if drv.timing:
+        t = timers.get
+        print("", file=out)
+        print(f"TIME: read input 0.00000 s, part / decomp "
+              f"{t('partition'):.5f} s, create A {t('createA'):.5f} s, "
+              f"solver set up {t('setup'):.5f} s, solver iterations "
+              f"{t('solve'):.5f} s, solve "
+              f"{t('setup') + t('solve'):.5f} s", file=out)
+        print(f"      L1       setup: Minv {t('l1_minv'):.5f} s", file=out)
+        if gen.lvl2_num:
+            print(f"      L2       setup: eigen solve {t('l2_eig'):.5f} s"
+                  f", Z {t('l2_z'):.5f} s, E {t('l2_e'):.5f} s", file=out)
+        print(f"TIME: total {time.perf_counter() - t_total:.5f} s",
+              file=out)
     if drv.cmd_line:
         print(f"\nCMD: {user_cmd}", file=out)
     return 0  # the reference returns 0 either way; the result is in the log

@@ -118,6 +118,8 @@ class DriverOptions:
     """Mirror of the reference CLI driver options (geneo4PETSc.cpp:1396-1495).
 
     ``device``: where the solve runs, "cuda" or "cpu" (``--device``).
+    ``structured``: "GX,GY,GZ" box decomposition of the structured scale
+    path (``--structured``), "" for the generic path.
     """
 
     inp_file_a: str = ""
@@ -134,3 +136,4 @@ class DriverOptions:
     cmd_line: bool = False
     n_parts: int = 2  # "mpirun -n" equivalent: number of subdomains
     device: str = "cuda"
+    structured: str = ""

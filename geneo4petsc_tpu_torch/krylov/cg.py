@@ -26,7 +26,20 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
              x0: torch.Tensor | None = None,
              rtol: float = 1e-5, atol: float = 1e-50, dtol: float = 1e4,
              max_it: int = 10000,
-             norm_type: str = "preconditioned") -> cm.SolveResult:
+             norm_type: str = "preconditioned",
+             stall_its: int | None = None,
+             flexible: bool = False) -> cm.SolveResult:
+    """stall_its (off by default — PETSc has no stagnation test): exit
+    with CONVERGED_STEP_LENGTH when the residual norm has not improved by
+    1% for `stall_its` consecutive iterations.  Used by the
+    mixed-precision refinement drivers, where the f32 roundoff floor is
+    problem-scaled and the f64 outer loop owns true convergence.
+
+    flexible: Polak-Ribiere beta (flexible CG) —
+    beta = z_{k+1}.(r_{k+1} - r_k) / z_k.r_k instead of Fletcher-Reeves.
+    Identical for a FIXED SPD preconditioner; needed when the
+    preconditioner varies between applications (inexact Schwarz: the
+    structured path's PCG local solves)."""
     if pc_apply is None:
         pc_apply = lambda v: v  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -59,12 +72,14 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
 
     p = z
     it = 0
-    rnorm = rnorm0
+    rnorm = best = rnorm0
+    since = 0
     while reason == cm.CONVERGED_ITERATING:
         w = matvec(p)
         pw = torch.dot(p, w)
         alpha = rz / pw
         x = x + alpha * p
+        r_old = r
         r = r - alpha * w
         z = pc_apply(r)
         rz2 = torch.dot(r, z)
@@ -77,7 +92,18 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
             reason = cm.DIVERGED_INDEFINITE_MAT
         if rz2_h < 0.0 and reason == cm.CONVERGED_ITERATING:
             reason = cm.DIVERGED_INDEFINITE_PC
-        p = z + (rz2 / rz) * p
+        if stall_its is not None:
+            # a 1% improvement resets the window: genuine convergence
+            # beats this easily, a roundoff-floor bounce does not
+            since = 0 if rnorm < 0.99 * best else since + 1
+            best = min(best, rnorm)
+            if since >= stall_its and reason == cm.CONVERGED_ITERATING:
+                reason = cm.CONVERGED_STEP_LENGTH
+        if flexible:
+            beta = (rz2 - torch.dot(r_old, z)) / rz
+        else:
+            beta = rz2 / rz
+        p = z + beta * p
         rz = rz2
     return cm.SolveResult(x=x, its=it, reason=reason, rnorm=rnorm,
                           history=cm.history_tensor(hist, max_it))

@@ -55,6 +55,12 @@ class GenEOStats:
     # linearly dependent coarse columns removed by the pivoted-Cholesky
     # pruning pass before factorizing E
     e_pruned: int = 0
+    # [n_dom] columns selected by the eigenproblem windows + Nicolaides,
+    # before the pruning pass (structured setup; None elsewhere)
+    raw_dim_e: np.ndarray | None = None
+    # [n_dom] LOBPCG relative residual, max over the kept pairs
+    # (structured setup; None for the dense-eigh route)
+    lobpcg_res: np.ndarray | None = None
 
 
 @dataclass(frozen=True)
@@ -283,7 +289,8 @@ def prune_dependent_columns(e: np.ndarray, dtype) -> np.ndarray | None:
     return np.sort(piv[:rank] - 1).astype(np.int64)
 
 
-def factor_e(e: np.ndarray, dtype) -> tuple[np.ndarray, np.ndarray, int]:
+def factor_e(e: np.ndarray, dtype, e_dtype=None
+             ) -> tuple[np.ndarray, np.ndarray, int]:
     """Factor the coarse operator E (host LAPACK, float64).
 
     Returns (W, ew, e_null) with E^-1 applied as W diag(1/ew) W^T.
@@ -292,9 +299,12 @@ def factor_e(e: np.ndarray, dtype) -> tuple[np.ndarray, np.ndarray, int]:
     the spectral-apply layout of apply_q at a fraction of eigh's cost.
     The spectral pseudo-inverse stays as the fallback for (near-)singular
     E — the MUMPS null-pivot-fix analogue (geneo.cpp ICNTL(24)/CNTL(5));
-    e_null counts the truncated modes.  ``dtype`` is the precision E was
-    assembled in and sets both the near-singularity test and the
-    truncation floor."""
+    e_null counts the truncated modes.  ``dtype`` (the precision the
+    factors are applied in) gates the Cholesky path; ``e_dtype`` (the
+    precision E was assembled in, default ``dtype``) sets the truncation
+    floor of the spectral fallback."""
+    if e_dtype is None:
+        e_dtype = dtype
     dim_e = e.shape[0]
     if dim_e > 0:
         try:
@@ -310,7 +320,7 @@ def factor_e(e: np.ndarray, dtype) -> tuple[np.ndarray, np.ndarray, int]:
         except np.linalg.LinAlgError:
             pass
     ew, ev = bl.host_eigh(e)
-    tol = dim_e * np.finfo(dtype).eps * np.abs(ew).max(initial=0.0)
+    tol = dim_e * np.finfo(e_dtype).eps * np.abs(ew).max(initial=0.0)
     e_null = int((ew <= tol).sum())
     ew = np.where(ew > tol, ew, np.inf)  # truncated modes
     return ev, ew, e_null

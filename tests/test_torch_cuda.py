@@ -146,3 +146,84 @@ def test_solve_on_cuda_matches_cpu(cuda):
     assert np.linalg.norm(got.x - ref.x) <= 1e-10 * np.linalg.norm(ref.x)
     assert lk.fused_local_solve.launches - k1 >= got.its
     assert lk.block_matvec.launches - k2 >= 2 * got.its
+
+
+# ---------------- the structured path on the card ----------------
+
+def _structured(size, dim, dg, overlap, device, dtype=torch.float64):
+    from geneo4petsc_tpu_torch.structured import local_ops as lo
+    from geneo4petsc_tpu_torch.structured.decompose import (
+        StructuredDecomposition)
+    from geneo4petsc_tpu_torch.structured.grid import laplacian_grid
+
+    sd = StructuredDecomposition(laplacian_grid(
+        size, dim=dim, kappa_max=1e4, interp="minmax"), dg, overlap)
+    pad1 = tuple(p + 1 if g > 1 else 0 for p, g in zip(sd.pad, sd.dom_grid))
+    return sd, lo.slice_inner(lo.gather_fields(sd, dtype, pad=pad1,
+                                               device=device), sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_structured_scatter_add_is_bitwise_reproducible(cuda, dtype):
+    from geneo4petsc_tpu_torch.structured import halo
+
+    grid, dg, pad = (48, 48, 48), (4, 4, 2), (2, 2, 2)
+    n_dom, box = 32, (48 // 2 + 4, 48 // 4 + 4, 48 // 4 + 4)
+    yl = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (n_dom,) + box)).to(cuda, dtype)
+    blocks = halo.from_batch(yl, dg)
+    first = halo.halo_scatter_add(blocks, grid, dg, pad)
+    for _ in range(3):
+        assert torch.equal(halo.halo_scatter_add(blocks.clone(), grid, dg,
+                                                 pad), first)
+    want = halo.halo_scatter_add(blocks.cpu().double(), grid, dg, pad)
+    assert _rel(first.double().cpu(), want) <= TOL[dtype]
+
+
+def test_structured_stencils_and_fdm_on_cuda_match_cpu(cuda):
+    from geneo4petsc_tpu_torch.structured import fdm
+    from geneo4petsc_tpu_torch.structured import local_ops as lo
+    from geneo4petsc_tpu_torch.structured.grid import global_stencil
+
+    sd, f_cpu = _structured(24, 3, (2, 2, 2), 2, torch.device("cpu"))
+    _, f_gpu = _structured(24, 3, (2, 2, 2), 2, cuda)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2,) + tuple(f_cpu.diag.shape))).transpose(0, 1).contiguous()
+    xg = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        sd.grid.n_nodes))
+    got = global_stencil(sd.grid, torch.float64, cuda).matvec(xg.to(cuda))
+    want = global_stencil(sd.grid, torch.float64, "cpu").matvec(xg)
+    assert _rel(got.cpu(), want) <= 1e-14
+    for make in (lo.neumann_stencil, lo.dirichlet_stencil):
+        assert _rel(make(f_gpu).matvec(x.to(cuda)).cpu(),
+                    make(f_cpu).matvec(x)) <= 1e-14
+    ax = fdm.dirichlet_axes(sd)
+    got = fdm.fdm_factor(ax, dtype=torch.float64, device=cuda).solve(
+        x.to(cuda))
+    want = fdm.fdm_factor(ax, dtype=torch.float64, device="cpu").solve(x)
+    assert _rel(got.cpu(), want) <= 1e-12
+
+
+@pytest.mark.parametrize("device_refine", [False, True],
+                         ids=["host-refine", "device-refine"])
+def test_structured_solve_on_cuda_matches_cpu(cuda, device_refine):
+    from geneo4petsc_tpu_torch.structured.grid import laplacian_grid
+    from geneo4petsc_tpu_torch.structured.solve import solve_structured
+
+    g = GenEOOptions()
+    g.lvl1, g.lvl2 = "ASM", "E1"
+    g.els2.type, g.cut = "lobpcg", 2
+    kw = dict(geneo=g, ksp=KSPOptions(type="cg"), tol=1e-8,
+              dtype=torch.float64, device_refine=device_refine)
+    grid = laplacian_grid(24, dim=3, kappa_max=1e4, interp="minmax")
+    ref = solve_structured(grid, (2, 2, 2), 2, device="cpu", **kw)
+    got = solve_structured(grid, (2, 2, 2), 2, device=cuda, **kw)
+    assert got.pc.z.device.type == "cuda"
+    assert got.converged and got.true_res <= 1e-8
+    np.testing.assert_array_equal(got.stats.real_dim_e,
+                                  ref.stats.real_dim_e)
+    np.testing.assert_array_equal(got.stats.nicolaides,
+                                  ref.stats.nicolaides)
+    assert abs(got.its - ref.its) <= 1
+    assert got.refined.outer_its == ref.refined.outer_its

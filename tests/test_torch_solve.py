@@ -137,7 +137,7 @@ def test_cli_info_lines_match_jax():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--structured", "2,2,1"], "items 12-16"),
+    (["--structured", "2,2,1", "--inpLibA", "elasticity"], "item 18"),
     (["--nbDevices", "2"], "item 19"),
     (["--debug", "log"], "item 11"),
     (["-geneo_dbg", "log,1"], "item 11"),
