@@ -9,17 +9,16 @@ with a non-zero exit code and no result line:
 2. build    — compile the CUDA kernels of geneo4petsc_tpu_torch/csrc/
               (nvcc, sm_90a) and the native partitioner (native/kway.cpp).
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the slice's shape [1024, 496, 496] float64 and at shapes
+              at the main paths' shapes ([1024, 496, 496] float64 of the
+              slice, [1024, 320, 320] float32 of large, [64, 448, 448]
+              float64 of generic-family's lobpcg cases) and at shapes
               that reach both of its paths (the bulk-copy ring and the
               direct loads) and their edges: odd n, n no multiple of 32,
               fewer domains than SMs, a domain count no multiple of the
               grid, a large n, float32 with n % 4 of 0 and 2, and a batch
               whose base pointer is 8- but not 16-byte aligned; max
               relative error <= 1e-12 (float64) / 1e-5 (float32), and
-              repeated launches give the same bits.  At the slice's shape
-              the kernel and torch.bmm (the library call for the same
-              product, which the port never calls on the card) are timed
-              in turns by CUDA events, with the bound from the bytes.
+              repeated launches give the same bits.
 4. small    — the same small GenEO solve through the CLI on cpu and on
               cuda: equal iteration counts and reasons.
 5. slice    — the generic GenEO path at 262,144 DOF through the CLI
@@ -42,9 +41,44 @@ with a non-zero exit code and no result line:
               lines and peak device memory, beside the JAX package's TPU
               record as a reference.  K1 and K2 are not on this path:
               their counts, zeroed before it, stay 0.
+8. large    — the JAX package's `bench.py large` configuration through
+              the port's library, at full width: laplacian --size 512
+              --dim 2 --kappa 10000. minmax (262,144 DOF), the brick
+              partition into 32x32 = 1024 domains, the nodal fast
+              decomposition, float32 assembly, ASM,E1 with block inverses
+              (K1) and the LOBPCG eigensolve on the card (cut 4, 50
+              iterations), the float32 PC inner CG (K2 in every
+              iteration) inside float64 refinement to a true 1e-8 (at
+              most 14 outer passes).  Checks convergence, the true
+              residual again on the host in float64, dim_e <= 4 per
+              domain + Nicolaides, that the pencils and LOBPCG ran on the
+              card, and the K1/K2 launches against the inner iterations;
+              prints the JAX bench's phases beside the slice's host-eigh
+              numbers (a reference, not a check).
+9. generic-family — the modules of the generic path beyond laplacian +
+              GenEO through the CLI, each case on cpu and on cuda in this
+              process (float64): a heat and a graph golden entry (dual
+              GenEO-1, nodal SORAS GenEO-2), bjacobi (ILU(0)) on a
+              laplacian golden entry, -pc_type mg with a W cycle and 5/5
+              sweeps, and -els2_type lobpcg with no cut (ASM,E1 under CG
+              and SORAS,E2 under GMRES: Sylvester inertia by LDL^T on the
+              card) on laplacian --size 128, 64 domains; equal iterations, reasons,
+              dim_e, Nicolaides and per-domain inertia estimates on both
+              devices, and the golden counts where there are some.  Times
+              the inertia route (LDL^T) at the lobpcg cases' shape, and
+              checks its counts there against the host's.
+10. path-shapes — each kernel at every shape a main path (slice, large,
+              generic-family) launched it at, as that path's batch gave
+              it: held against its plain version as in phase 3, then
+              timed in turns with torch.bmm (the library call for the
+              same product, which the port never calls on the card) and
+              with its plain version by CUDA events, beside its bound
+              from the bytes and operations.
 
-It then prints one JSON line with every kernel's launches, error, path,
-times and bound, and last the result line
+It then prints one JSON line with every kernel's launches (the sum over
+the phases that drive a main path, and each phase's count), and its
+error, path, times and bound at the slice's shape and, under "shapes",
+at every shape of phase 10; and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -87,6 +121,8 @@ KERNEL_CASES = [
     ((2, 3000), "float64", True, "ring"),       # large n
     ((7, 50), "float64", False, "direct"),      # misaligned base pointer
     (MAIN_SHAPE, "float64", False, "direct"),
+    ((1024, 320), "float32", True, "ring"),     # large's shape
+    ((64, 448), "float64", True, "ring"),       # generic-family's lobpcg
 ]
 # Published peaks of the H100 SXM (NVIDIA's data sheet): device memory
 # rate, and float64 / float32 rates outside the tensor cores.
@@ -124,6 +160,47 @@ STRUCTURED_DOF = 10077696
 # the JAX package's record of this case on a TPU v5e (BENCH_r05.json):
 # a reference point, not a target
 JAX_TPU_RECORD = "dim_e 113, 140 inner / 3 outer iterations, true_res 1.33e-9"
+
+LARGE_SIZE, LARGE_GRID = 512, 32   # bench.py:901-904, mode "large"
+LARGE_CUT = 4
+# generic-family: (label, CLI arguments, golden entry or None); the golden
+# arguments are tst/iters.py's
+_GOLDEN_KSP = ["-ksp_rtol", "1.e-05", "-ksp_atol", "1.e-05",
+               "-ksp_max_it", "1000", "-ksp_gmres_restart", "1000"]
+_LOBPCG_CASE = ["--inpLibA", "laplacian", "--inpLibArg",
+                "--size#128#--dim#2#--kappa#10000.#minmax", "--nbPart", "64",
+                "--addOverlap", "1", "-pc_type", "geneo", "-els2_type",
+                "lobpcg", "-ksp_rtol", "1e-8"]
+FAMILY_CASES = [
+    ("heat dual ASM,1", ["--inpLibA", "heat", "--inpLibArg",
+                         "--size#10#--weakScaling#1#--dim#2#--lbd#2.#--dt#0.5",
+                         "--nbPart", "2", "--metisDual", *_GOLDEN_KSP,
+                         "-pc_type", "geneo", "-geneo_lvl", "ASM,1",
+                         "-geneo_tau", "0.1", "-geneo_gamma", "8."],
+     "heat-np=2-pc=geneoASM1-metis=dual"),
+    ("graph nodal SORAS,2", ["--inpLibA", "graph", "--inpLibArg",
+                             "--size#16#--weakScaling#1", "--nbPart", "2",
+                             "--metisNodal", *_GOLDEN_KSP, "-pc_type", "geneo",
+                             "-geneo_lvl", "SORAS,2", "-geneo_tau", "0.1",
+                             "-geneo_gamma", "8.", "-geneo_optim", "0.00"],
+     "graph-np=2-pc=geneoSORAS2-metis=nodal"),
+    ("laplacian dual bjacobi", ["--inpLibA", "laplacian", "--inpLibArg",
+                                "--size#10#--weakScaling#1#--dim#2",
+                                "--nbPart", "2", "--metisDual", *_GOLDEN_KSP,
+                                "-pc_type", "bjacobi"],
+     "laplacian-np=2-pc=bjacobi-metis=dual"),
+    ("laplacian mg w 5/5", ["--inpLibA", "laplacian", "--inpLibArg",
+                            "--size#64#--dim#2#--kappa#100.#minmax",
+                            "--nbPart", "4", "-pc_type", "mg",
+                            "-pc_mg_cycle_type", "w", "-pc_mg_smoothdown",
+                            "5", "-pc_mg_smoothup", "5", "-ksp_type", "cg",
+                            "-ksp_rtol", "1e-8"], None),
+    ("laplacian 128 lobpcg ASM,E1", _LOBPCG_CASE + [
+        "-geneo_lvl", "ASM,E1", "-ksp_type", "cg"], None),
+    # SORAS is not symmetric: GMRES, the reference's KSP for it
+    ("laplacian 128 lobpcg SORAS,E2", _LOBPCG_CASE + [
+        "-geneo_lvl", "SORAS,E2", "-ksp_type", "gmres"], None),
+]
 
 _RE_SOLVE = re.compile(r"INFO: solve - (converged|diverged) \(([A-Z_]+)\), "
                        r"(\d+) iteration\(s\), residual norm \S+, "
@@ -200,17 +277,47 @@ def _kernel_inputs(n_dom, n, dtype, aligned, rng, dev):
     return inv, d, mask, x
 
 
-def phase_kernels() -> dict:
-    """Each kernel against its plain version at every case; returns the
-    main-shape numbers per kernel for the JSON line."""
+def _kernel_runs(lk, inv, d, mask, x):
+    """(name, variant, kernel call, plain call, bytes of mask and weights)
+    of each kernel variant on one case's inputs."""
+    runs = [("fused_local_solve", f"pre={pre} post={post}",
+             lambda pre=pre, post=post: lk.fused_local_solve(
+                 inv, d, mask, x, pre, post),
+             lambda pre=pre, post=post: lk.fused_local_solve_plain(
+                 inv, d, mask, x, pre, post),
+             mask.numel() + (pre or post) * d.numel() * d.element_size())
+            for pre, post in ((False, False), (True, False), (True, True))]
+    runs.append(("block_matvec", "", lambda: lk.block_matvec(inv, x),
+                 lambda: lk.block_matvec_plain(inv, x), 0))
+    return runs
+
+
+def _hold(name, variant, kern, plain, where, tol) -> tuple[float, float]:
+    """Launch a kernel twice beside its plain version: the same bits both
+    times, and within ``tol`` of the plain result (max relative error).
+    Returns (max abs error, max relative error)."""
+    import torch
+
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    abs_err = float((got - want).abs().max())
+    rel_err = abs_err / max(float(want.abs().max()), 1e-300)
+    check(rel_err <= tol, f"{name} {variant} {where} disagrees with its "
+                          f"plain version: {rel_err:.3e} > {tol:g}")
+    check(torch.equal(got, again), f"{name} {variant} {where}: two "
+                                   "launches gave different bits")
+    return abs_err, rel_err
+
+
+def phase_kernels() -> None:
+    """Each kernel against its plain version at every case of
+    KERNEL_CASES, on the path the case must take."""
     import torch
 
     from geneo4petsc_tpu_torch.ops import local_kernels as lk
-    from geneo4petsc_tpu_torch.utils.cuda_timing import time_in_turns
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    summary = {}
     for (n_dom, n), dtype_name, aligned, want_path in KERNEL_CASES:
         dtype = getattr(torch, dtype_name)
         inv, d, mask, x = _kernel_inputs(n_dom, n, dtype, aligned, rng, dev)
@@ -220,33 +327,54 @@ def phase_kernels() -> dict:
         path = lk.plan_for(inv).path
         check(path == want_path, f"{where} took the {path} path, "
                                  f"expected {want_path}")
+        for name, variant, kern, plain, _ in _kernel_runs(lk, inv, d, mask,
+                                                          x):
+            _, rel_err = _hold(name, variant, kern, plain, where, tol)
+            print(f"[kernels] {name} {variant} {where} {path}: max rel err "
+                  f"{rel_err:.3e} (tol {tol:g})", flush=True)
+        del inv, d, mask, x
+        torch.cuda.empty_cache()
+
+
+def phase_path_shapes(seen: list) -> dict:
+    """Each kernel at every shape a main path gave it: held against its
+    plain version, then timed in turns with torch.bmm (the library call
+    for the same product, which the port never calls on the card) and
+    with the plain version, beside its bound.  ``seen``: (phase, n_dom,
+    n_max, dtype name, launches per kernel) of every main-path run.
+    Returns, per kernel, one row per shape."""
+    import torch
+
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.utils.cuda_timing import time_in_turns
+
+    shapes = {}
+    for phase, n_dom, n, dtype_name, launches in seen:
+        for name, count in launches.items():
+            if count:
+                shapes.setdefault((n_dom, n, dtype_name), {}).setdefault(
+                    name, set()).add(phase)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    rows = {"fused_local_solve": [], "block_matvec": []}
+    for (n_dom, n, dtype_name), kernels in sorted(
+            shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1] ** 2):
+        dtype = getattr(torch, dtype_name)
+        inv, d, mask, x = _kernel_inputs(n_dom, n, dtype, True, rng, dev)
+        tol = TOL[dtype_name]
+        where = f"[{n_dom},{n},{n}] {dtype_name}"
+        path = lk.plan_for(inv).path
 
         def lib():
             return torch.bmm(inv, x.unsqueeze(-1))
 
-        runs = [("fused_local_solve", f"pre={pre} post={post}",
-                 lambda pre=pre, post=post: lk.fused_local_solve(
-                     inv, d, mask, x, pre, post),
-                 lambda pre=pre, post=post: lk.fused_local_solve_plain(
-                     inv, d, mask, x, pre, post),
-                 mask.numel() + (pre or post) * d.numel() * d.element_size())
-                for pre, post in ((False, False), (True, False), (True, True))]
-        runs.append(("block_matvec", "", lambda: lk.block_matvec(inv, x),
-                     lambda: lk.block_matvec_plain(inv, x), 0))
-        for name, variant, kern, plain, vector_bytes in runs:
-            got, again, want = kern(), kern(), plain()
-            torch.cuda.synchronize()
-            abs_err = float((got - want).abs().max())
-            rel_err = abs_err / max(float(want.abs().max()), 1e-300)
-            line = (f"[kernels] {name} {variant} {where} {path}: max rel "
-                    f"err {rel_err:.3e} (tol {tol:g})")
-            check(rel_err <= tol, f"{name} {variant} {where} disagrees with "
-                                  f"its plain version: {rel_err:.3e} > {tol:g}")
-            check(torch.equal(got, again), f"{name} {variant} {where}: two "
-                                           "launches gave different bits")
-            if (n_dom, n) != MAIN_SHAPE:
-                print(line, flush=True)
+        for name, variant, kern, plain, vector_bytes in _kernel_runs(
+                lk, inv, d, mask, x):
+            # the main paths run ASM: K1 without weights
+            if name not in kernels or variant not in (
+                    "", "pre=False post=False"):
                 continue
+            abs_err, rel_err = _hold(name, variant, kern, plain, where, tol)
             # every input read once, the output written once
             moved = ((inv.numel() + 2 * x.numel()) * inv.element_size()
                      + vector_bytes)
@@ -257,27 +385,26 @@ def phase_kernels() -> dict:
             b, k = time_in_turns(lib, kern)
             _, p = time_in_turns(lib, plain, rounds=3)
             share = bound_ms / k["ms"]
-            print(f"{line}; kernel {k['ms']:.4f} ms [{k['min_ms']:.4f}, "
-                  f"{k['max_ms']:.4f}], torch.bmm {b['ms']:.4f} ms "
-                  f"[{b['min_ms']:.4f}, {b['max_ms']:.4f}], plain "
-                  f"{p['ms']:.4f} ms, bound {bound_ms:.4f} ms ({moved} B), "
-                  f"share of bound {share:.3f}", flush=True)
+            phases = sorted(kernels[name])
+            print(f"[path-shapes] {name} {where} {path} ({', '.join(phases)})"
+                  f": max rel err {rel_err:.3e} (tol {tol:g}); kernel "
+                  f"{k['ms']:.4f} ms [{k['min_ms']:.4f}, {k['max_ms']:.4f}],"
+                  f" torch.bmm {b['ms']:.4f} ms [{b['min_ms']:.4f}, "
+                  f"{b['max_ms']:.4f}], plain {p['ms']:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({moved} B), share of bound "
+                  f"{share:.3f}", flush=True)
             check(share <= 1.0, f"{name} {where}: {k['ms']:.4f} ms is under "
                                 f"the bound {bound_ms:.4f} ms")
-            if aligned:
-                # the slice runs ASM: K1 without weights is its variant
-                row = summary.setdefault(name, {"max_abs_err": 0.0})
-                row["max_abs_err"] = max(row["max_abs_err"], abs_err)
-                if variant in ("", "pre=False post=False"):
-                    row.update(
-                        path=path, ms=k["ms"], ms_min=k["min_ms"],
-                        ms_max=k["max_ms"], library_ms=b["ms"],
-                        plain_ms=p["ms"], bound_ms=bound_ms,
-                        bound_by="bytes" if by_bytes >= by_ops
-                        else "operations", share_of_bound=share)
+            rows[name].append(dict(
+                phases=phases, shape=[n_dom, n, n], dtype=dtype_name,
+                path=path, max_abs_err=abs_err, ms=k["ms"],
+                ms_min=k["min_ms"], ms_max=k["max_ms"], library_ms=b["ms"],
+                plain_ms=p["ms"], bound_ms=bound_ms,
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                share_of_bound=share))
         del inv, d, mask, x
         torch.cuda.empty_cache()
-    return summary
+    return rows
 
 
 def _run_cli(args: list[str]) -> tuple[str, dict]:
@@ -321,10 +448,15 @@ def phase_slice() -> dict:
     lk.fused_local_solve.launches = 0
     lk.block_matvec.launches = 0
     t0 = time.perf_counter()
-    log, info = _run_cli(SLICE_ARGS + ["--device", "cuda", "--timing"])
+    log, info, out = _run_cli_keep(SLICE_ARGS + ["--device", "cuda",
+                                                 "--timing"])
     wall = time.perf_counter() - t0
     launches = {"fused_local_solve": lk.fused_local_solve.launches,
                 "block_matvec": lk.block_matvec.launches}
+    batch = out.assembled.batch
+    shape = ("slice", batch.n_dom, batch.n_max, str(batch.dtype)[6:],
+             launches)
+    del out, batch
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for line in log.splitlines():
         if line.startswith(("INFO", "WRNG", "TIME", "      ")):
@@ -348,7 +480,9 @@ def phase_slice() -> dict:
           f"K2 launched {launches['block_matvec']} < {2 * its} times")
     check(peak_gb >= 4.0, f"peak device memory {peak_gb:.2f} GB: the "
                           "operator blocks did not live on the card")
-    return launches
+    info.update(wall_s=wall, timing=[ln.strip() for ln in log.splitlines()
+                                     if ln.startswith(("TIME", "      "))])
+    return launches, shape, info
 
 
 def phase_structured_parity() -> None:
@@ -465,6 +599,237 @@ def phase_structured() -> dict:
     return info
 
 
+def phase_large(slice_info: dict) -> dict:
+    """bench.py large through the port's library (see the docstring)."""
+    import torch
+
+    from geneo4petsc_tpu_torch.assembly.assemble import assemble
+    from geneo4petsc_tpu_torch.config import GenEOOptions
+    from geneo4petsc_tpu_torch.krylov.refine import (make_pc_inner_solver,
+                                                     refined_solve)
+    from geneo4petsc_tpu_torch.models import laplacian
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.partition.decompose import decompose_nodal_fast
+    from geneo4petsc_tpu_torch.partition.kway import partition_structured_grid
+    from geneo4petsc_tpu_torch.precond import geneo
+    from geneo4petsc_tpu_torch.utils.timers import Timers
+
+    dev = torch.device("cuda")
+    size, n_grid = LARGE_SIZE, LARGE_GRID
+    n_dom = n_grid * n_grid
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    mesh = laplacian.get_input(f"--size {size} --dim 2 --kappa 10000. minmax")
+    t["generator"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part = partition_structured_grid((size, size), (n_grid, n_grid))
+    decomp = decompose_nodal_fast(mesh, part, n_dom)
+    t["partition"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ap = assemble(mesh, decomp, dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t["assemble"] = time.perf_counter() - t0
+
+    # where the LOBPCG pencils lived (the eigensolve runs where they are)
+    seen = []
+    lobpcg = geneo.batched_lobpcg
+
+    def record(a, b, *args, **kw):
+        seen.append((a.device.type, b.device.type, tuple(a.shape)))
+        return lobpcg(a, b, *args, **kw)
+
+    opts = GenEOOptions()
+    opts.lvl1, opts.lvl2, opts.cut = "ASM", "E1", LARGE_CUT
+    opts.dls1.type, opts.els2.type = "inverse_pallas", "lobpcg"
+    timers = Timers()
+    lk.fused_local_solve.launches = 0
+    lk.block_matvec.launches = 0
+    geneo.batched_lobpcg = record
+    t0 = time.perf_counter()
+    try:
+        pc, stats = geneo.setup_geneo(ap.batch, opts, decomp=decomp,
+                                      timers=timers, a_csr=ap.a_csr)
+        torch.cuda.synchronize()
+    finally:
+        geneo.batched_lobpcg = lobpcg
+    t["setup"] = time.perf_counter() - t0
+
+    n = mesh.n_nodes
+    x_true = np.arange(1.0, n + 1)
+    b = np.asarray(ap.a_csr @ x_true)
+
+    def residual64(x):
+        return b - ap.a_csr @ x
+
+    t0 = time.perf_counter()
+    r = refined_solve(b, residual64, make_pc_inner_solver(pc), tol=1e-8,
+                      max_outer=14, device=dev)
+    torch.cuda.synchronize()
+    t["solve"] = time.perf_counter() - t0
+    launches = {"fused_local_solve": lk.fused_local_solve.launches,
+                "block_matvec": lk.block_matvec.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_res = float(np.linalg.norm(residual64(r.x)) / np.linalg.norm(b))
+    err = float(np.max(np.abs(r.x - x_true))) / n
+    dim_e = int(stats.real_dim_e.sum())
+    nic = int(stats.nicolaides.sum())
+    res_max = float(stats.lobpcg_res.max())
+    tm = timers.get
+    info = {"n_dof": n, "n_dom": n_dom, "n_max": ap.batch.n_max,
+            "dim_e": dim_e, "nicolaides": nic,
+            "inner_its": r.inner_its, "outer_its": r.outer_its,
+            "true_res": r.true_res, "host_res": host_res,
+            "rel_err_max": err, "converged": bool(r.converged),
+            "peak_gb": peak_gb, "launches": launches,
+            **{f"{k}_s": v for k, v in t.items()},
+            "l1_s": tm("l1_minv"), "l2_eig_s": tm("l2_eig"),
+            "l2_pencil_s": tm("l2_pencil"), "l2_lobpcg_s": tm("l2_lobpcg"),
+            "z_s": tm("l2_z"), "e_s": tm("l2_e"),
+            "lobpcg_res_max": res_max, "history": r.history,
+            "shape": ("large", n_dom, ap.batch.n_max, "float32", launches)}
+    print(f"[large] {n} DOF, {n_dom} domains (n_max {ap.batch.n_max}), "
+          f"float32: generator {t['generator']:.3f} s, partition "
+          f"{t['partition']:.3f} s, assemble {t['assemble']:.3f} s, setup "
+          f"{t['setup']:.3f} s (L1 {tm('l1_minv'):.3f} s, L2 eigensolve "
+          f"{tm('l2_eig'):.3f} s = pencils {tm('l2_pencil'):.3f} s + LOBPCG "
+          f"{tm('l2_lobpcg'):.3f} s, Z {tm('l2_z'):.3f} s, E "
+          f"{tm('l2_e'):.3f} s), solve {t['solve']:.3f} s", flush=True)
+    print(f"[large] dim_e {dim_e} (cut {LARGE_CUT}, nicolaides {nic}), "
+          f"{r.inner_its} inner / {r.outer_its} outer iterations, true_res "
+          f"{r.true_res:.3e} (host float64 recheck {host_res:.3e}), max "
+          f"|x - x_true| / n {err:.3e}, kept LOBPCG residual max "
+          f"{res_max:.3e}, peak device memory {peak_gb:.2f} GB, LOBPCG "
+          f"pencils {seen}, launches {launches}", flush=True)
+    print(f"[large] reference, not a check — the slice (phase 5: same mesh, "
+          f"k-way dual partition with overlap 1, float64, host LAPACK "
+          f"eigensolve): {slice_info['its']} its, dim_e "
+          f"{slice_info.get('dim_e')}, CLI wall {slice_info['wall_s']:.2f} s; "
+          + " | ".join(slice_info["timing"][:3]), flush=True)
+    check(r.converged and r.true_res <= 1e-8 and host_res <= 1e-8,
+          f"large: not converged to 1e-8 (true_res {r.true_res}, host "
+          f"{host_res})")
+    check(bool(np.isfinite(r.x).all()), "large: non-finite solution")
+    check(dim_e <= LARGE_CUT * n_dom + nic, f"large: dim_e {dim_e}")
+    check(seen and all(a == "cuda" and b_ == "cuda" for a, b_, _ in seen),
+          f"large: the LOBPCG pencils were not on the card: {seen}")
+    check(tm("l2_pencil") > 0 and tm("l2_lobpcg") > 0,
+          "large: no pencil or LOBPCG time recorded")
+    check(pc.l1_factor.dtype == torch.float32
+          and pc.l1_factor.device.type == "cuda",
+          "large: the level-1 inverses are not float32 on the card")
+    check(launches["fused_local_solve"] >= r.inner_its,
+          f"large: K1 launched {launches['fused_local_solve']} < "
+          f"{r.inner_its} times")
+    check(launches["block_matvec"] >= 2 * r.inner_its,
+          f"large: K2 launched {launches['block_matvec']} < "
+          f"{2 * r.inner_its} times")
+    return info
+
+
+def _run_cli_keep(args: list[str]):
+    """_run_cli, also returning the solve's SolveOutput."""
+    from geneo4petsc_tpu_torch import solver
+
+    seen = {}
+    solve = solver.solve_assembled
+
+    def keep(*a, **kw):
+        seen["out"] = solve(*a, **kw)
+        return seen["out"]
+
+    solver.solve_assembled = keep
+    try:
+        log, info = _run_cli(args)
+    finally:
+        solver.solve_assembled = solve
+    return log, info, seen["out"]
+
+
+def phase_generic_family() -> tuple[dict, list]:
+    """The generic path's other modules on cpu and cuda (see the
+    docstring); returns the K1/K2 launches of the cuda runs, and each
+    cuda run's batch shape with its launches."""
+    import torch
+
+    from geneo4petsc_tpu_torch.ops import batched_linalg as bl
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.precond import geneo
+    from geneo4petsc_tpu_torch.utils.cuda_timing import time_ms
+
+    with open(os.path.join(HERE, "tst", "golden",
+                           "iteration_counts.json")) as f:
+        golden = json.load(f)
+    launches = {"fused_local_solve": 0, "block_matvec": 0}
+    shapes = []
+    for label, args, entry in FAMILY_CASES:
+        t0 = time.perf_counter()
+        _, on_cpu, out_cpu = _run_cli_keep(args + ["--device", "cpu"])
+        t1 = time.perf_counter()
+        lk.fused_local_solve.launches = 0
+        lk.block_matvec.launches = 0
+        _, on_cuda, out_cuda = _run_cli_keep(args + ["--device", "cuda"])
+        t2 = time.perf_counter()
+        case = {name: getattr(lk, name).launches for name in launches}
+        for name in launches:
+            launches[name] += case[name]
+        batch = out_cuda.assembled.batch
+        shapes.append(("generic-family", batch.n_dom, batch.n_max,
+                       str(batch.dtype)[6:], case))
+        keys = ("status", "reason", "its", "dim_e", "nicolaides")
+        got = {k: on_cuda.get(k) for k in keys}
+        want = {k: on_cpu.get(k) for k in keys}
+        line = (f"[generic-family] {label}: cpu {want['its']} its "
+                f"{want['reason']}, cuda {got['its']} its {got['reason']}")
+        if got["dim_e"] is not None:
+            line += f", dim_e {got['dim_e']}, nicolaides {got['nicolaides']}"
+        st_cpu, st_cuda = out_cpu.stats, out_cuda.stats
+        if st_cuda is not None and st_cuda.lobpcg_res is not None:
+            line += (f", estim dim_e {int(st_cuda.estim_dim_e.sum())}, "
+                     f"L2 eigensolve cuda {out_cuda.timers.get('l2_eig'):.3f}"
+                     f" s (inertia {out_cuda.timers.get('l2_inertia'):.3f} s,"
+                     f" LOBPCG {out_cuda.timers.get('l2_lobpcg'):.3f} s)")
+        if entry is not None:
+            line += f", golden {golden[entry]}"
+        print(f"{line}; cpu {t1 - t0:.2f} s, cuda {t2 - t1:.2f} s",
+              flush=True)
+        check(want["status"] == "converged", f"{label}: did not converge")
+        check(got == want, f"{label}: cpu {want} != cuda {got}")
+        check(out_cuda.assembled.batch.device.type == "cuda",
+              f"{label}: the cuda run's operator is not on the card")
+        if st_cuda is not None:
+            for name in ("estim_dim_e", "real_dim_e", "nicolaides"):
+                check(np.array_equal(getattr(st_cpu, name),
+                                     getattr(st_cuda, name)),
+                      f"{label}: per-domain {name} differ between cpu "
+                      "and cuda")
+        if entry is not None:
+            pinned = {k: got[k] for k in golden[entry]}
+            check(pinned == golden[entry],
+                  f"{label}: {pinned} != golden {golden[entry]}")
+        if label.endswith("lobpcg ASM,E1"):
+            check(int(st_cuda.estim_dim_e.sum()) > 0,
+                  f"{label}: no inertia estimates")
+            a, b = geneo._pencil_tau_device(batch, 1e6)
+            s_mat = a - 0.1 * b
+            on_card = bl.ldlt_inertia(s_mat, batch.mask)
+            on_host = bl.ldlt_inertia(s_mat.cpu(), batch.mask.cpu())
+            check(all(torch.equal(x.cpu(), y)
+                      for x, y in zip(on_card, on_host)),
+                  f"{label}: the inertia counts differ between the card "
+                  "and the host")
+            ms_ldlt = time_ms(lambda: bl.ldlt_inertia(s_mat, batch.mask), 3)
+            ms_eig = time_ms(lambda: torch.linalg.eigvalsh(s_mat), 3)
+            print(f"[generic-family] inertia route at [{batch.n_dom}, "
+                  f"{batch.n_max}, {batch.n_max}] float64 on the card: "
+                  f"LDL^T (torch, one pivot a step on the trailing block) "
+                  f"{ms_ldlt:.2f} ms, counts equal to the host's; "
+                  f"torch.linalg.eigvalsh of the same batch {ms_eig:.2f} "
+                  "ms (a reference)", flush=True)
+    return launches, shapes
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -485,20 +850,38 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    kernels = phase_kernels()
+    phase_kernels()
     phase_small()
-    launches = phase_slice()
+    by_phase = {}
+    by_phase["slice"], slice_shape, slice_info = phase_slice()
     phase_structured_parity()
     phase_structured()
+    large = phase_large(slice_info)
+    by_phase["large"] = large["launches"]
+    by_phase["generic-family"], family_shapes = phase_generic_family()
+    at_shapes = phase_path_shapes([slice_shape, large["shape"],
+                                   *family_shapes])
 
     sources = {"fused_local_solve": ("geneo4petsc_tpu_torch/csrc/"
                                      "fused_local_solve.cu",
                                      "geneo4petsc_tpu/ops/pallas_kernels.py:90"),
                "block_matvec": ("geneo4petsc_tpu_torch/csrc/block_matvec.cu",
                                 "geneo4petsc_tpu/ops/pallas_kernels.py:125")}
-    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], **kernels[name]}
-            for name, (src, rep) in sources.items()]
+    # launches: the sum over the phases that drive a main path with K1/K2
+    # (slice, large, generic-family; the structured path has none); the
+    # times and error at the slice's shape, and in "shapes" at every
+    # shape a main path gave the kernel
+    rows = []
+    for name, (src, rep) in sources.items():
+        at_slice = next(r for r in at_shapes[name] if "slice" in r["phases"])
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep,
+                     "launches": sum(c[name] for c in by_phase.values()),
+                     "launches_by_phase": {p: c[name]
+                                           for p, c in by_phase.items()},
+                     **{k: v for k, v in at_slice.items()
+                        if k not in ("phases", "shape", "dtype")},
+                     "shapes": at_shapes[name]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

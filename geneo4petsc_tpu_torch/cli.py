@@ -6,8 +6,9 @@ Same flag surface as the JAX package's CLI:
   --metisNodal --addOverlap L --verbose V --timing --shortRes --cmdLine
   --help --nbPart N
 plus PETSc-style options consumed from the remaining argv:
-  -pc_type {geneo,none} -ksp_type {gmres,cg} -ksp_rtol -ksp_atol
-  -ksp_divtol -ksp_max_it -ksp_gmres_restart -options_left
+  -pc_type {geneo,bjacobi,mg,none} -ksp_type {gmres,cg} -ksp_rtol
+  -ksp_atol -ksp_divtol -ksp_max_it -ksp_gmres_restart -options_left
+  -pc_mg_cycle_type -pc_mg_smoothdown -pc_mg_smoothup
   -geneo_lvl L1,L2 -geneo_optim -geneo_tau -geneo_gamma -geneo_cst
   -geneo_cut -geneo_no_syl -geneo_offload -dls1_type -els2_type
 and one flag of its own:
@@ -39,7 +40,8 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
   --help,         print help
   --inpFileA F,   input file F describing the A matrix (mandatory unless --inpLibA)
   --inpEps E,     epsilon used to tune the elementary matrix (defaults to 0.0001)
-  --inpLibA L A,  input generator: registered name (laplacian), python path
+  --inpLibA L A,  input generator: registered name (laplacian, heat, graph,
+                  elasticity), python path
                   (module:function), or .so implementing the flat-C ABI
                   A: '#'-separated arguments passed to the generator
   --inpFileB F,   input file F describing the B vector
@@ -55,14 +57,15 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
   --shortRes,     print short result status (stable golden-test output)
   --cmdLine,      print command line at the end of the log
 
-  -pc_type P           geneo | none
+  -pc_type P           bjacobi (default) | mg | geneo | none
+  -pc_mg_cycle_type v|w  -pc_mg_smoothdown N  -pc_mg_smoothup N
   -ksp_type K          gmres | cg
   -ksp_rtol/-ksp_atol/-ksp_divtol/-ksp_max_it/-ksp_gmres_restart
   -geneo_lvl L1,L2     L1 = ASM|RAS|SRAS|ORAS|SORAS; L2 = 0|1|H1|E1|2|H2|E2
   -geneo_optim A  -geneo_tau T  -geneo_gamma G  -geneo_cst  -geneo_cut C
   -geneo_no_syl  -geneo_offload
   -dls1_type T         cholesky | lu | inverse | inverse_pallas
-  -els2_type T         eigh | lobpcg (lobpcg: with --structured)
+  -els2_type T         eigh | lobpcg
   -els2_eps_max_it N  -els2_eps_tol T
 """
 
@@ -74,10 +77,6 @@ _NOT_PORTED = {
     "--debug": "Queue 1, item 11 (debug dumps)",
     "-geneo_dbg": "Queue 1, item 11 (debug dumps)",
     "-geneo_chk": "Queue 1, item 11 (setup checks)",
-    "-pc_type bjacobi": "Queue 1, item 9 (comparison PCs)",
-    "-pc_type mg": "Queue 1, item 9 (comparison PCs)",
-    "-els2_type lobpcg": "Queue 1, item 10 (LOBPCG path of the generic "
-                         "solve; it runs with --structured)",
 }
 
 
@@ -149,6 +148,12 @@ def parse_args(argv: list[str]):
             i += 1; pc_type = need(i, a)
             if pc_type == "geneo":
                 drv.use_mat_mpi = False
+        elif a == "-pc_mg_cycle_type":
+            i += 1; drv.mg_cycle_type = need(i, a)
+        elif a == "-pc_mg_smoothdown":
+            i += 1; drv.mg_smooth_down = int(need(i, a))
+        elif a == "-pc_mg_smoothup":
+            i += 1; drv.mg_smooth_up = int(need(i, a))
         elif a == "-ksp_type":
             i += 1; ksp.type = need(i, a)
         elif a == "-ksp_rtol":
@@ -222,15 +227,11 @@ def parse_args(argv: list[str]):
 
         i += 1
 
-    if gen.els2.type == "lobpcg" and not drv.structured:
-        raise _not_ported("-els2_type lobpcg")
     if drv.structured and drv.inp_lib_a == "elasticity":
         raise _not_ported("--structured --inpLibA elasticity")
     if pc_type is None:
         pc_type = "bjacobi"  # PETSc parallel default PC
-    if pc_type in ("bjacobi", "mg"):
-        raise _not_ported(f"-pc_type {pc_type}")
-    if pc_type not in ("geneo", "none"):
+    if pc_type not in ("geneo", "bjacobi", "mg", "none"):
         raise CLIError(f"Error: invalid option -pc_type {pc_type}")
     if not drv.inp_file_a and not drv.inp_lib_a:
         raise CLIError("Error: no input")
@@ -486,6 +487,17 @@ def _print_info(res, drv, ksp, gen, pc_type, out):
                     print(f"WRNG: E is rank-deficient, {st.e_null} null "
                           "pivots fixed (check the true residual)",
                           file=out)
+                if st.lobpcg_res is not None \
+                        and float(st.lobpcg_res.max(initial=0.0)) \
+                        > gen.els2.rtol:
+                    # kept eigenpairs above the reference's EPS tolerance
+                    # analogue (checkEPSSolve, geneo.cpp:577-624): the
+                    # coarse space is degraded, CG may need extra its
+                    print("WRNG: eigensolver residual "
+                          f"{float(st.lobpcg_res.max()):.3e} above "
+                          f"tolerance {gen.els2.rtol:g} on "
+                          f"{int((st.lobpcg_res > gen.els2.rtol).sum())} "
+                          "domain(s)", file=out)
         else:
             print(line, file=out)
             if not drv.short_res:

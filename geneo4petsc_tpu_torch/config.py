@@ -137,3 +137,9 @@ class DriverOptions:
     n_parts: int = 2  # "mpirun -n" equivalent: number of subdomains
     device: str = "cuda"
     structured: str = ""
+    # -pc_mg_* options (the reference sweep's MG_OPT,
+    # tst/laplacian/laplacianRun.sh: "-pc_mg_cycle_type w
+    # -pc_mg_smoothup 5 -pc_mg_smoothdown 5")
+    mg_cycle_type: str = "v"
+    mg_smooth_down: int = 1
+    mg_smooth_up: int = 1

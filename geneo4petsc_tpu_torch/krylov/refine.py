@@ -27,6 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .cg import cg_solve
+
 
 def _pow2_at_least(m: torch.Tensor) -> torch.Tensor:
     """The nearest power of two >= m (1 where m == 0)."""
@@ -76,6 +78,26 @@ def _update64(x, dx, s):
 def _scale32(r, s):
     """(r / s) rounded to float32 — the power-of-two scaling is exact."""
     return (r * (1.0 / s)).to(torch.float32)
+
+
+def make_pc_inner_solver(pc) -> Callable:
+    """The float32 inner correction solve of a GenEO preconditioner for
+    ``refined_solve``: ``inner(r32, rtol)`` runs CG (with ``stall_its``
+    50, the float32 floor's exit) on ``pc.batch.matvec`` with
+    ``pc.apply``, at most 2000 iterations.
+
+    Efficient-hybrid contract (E variants, hdr/geneo.hpp:21-23): every
+    solve must start from the deflated guess X0 = Q B — here per outer
+    correction, x0 = Q r — or the simplified apply (which drops the
+    (I - P^T) projection) is not equivalent to the full hybrid one."""
+    eff = bool(pc.eff_hybrid)
+
+    def inner(r32: torch.Tensor, rtol: float):
+        x0 = pc.apply_q(r32).to(r32.dtype) if eff else None
+        return cg_solve(pc.batch.matvec, r32, pc.apply, x0=x0, rtol=rtol,
+                        max_it=2000, stall_its=50)
+
+    return inner
 
 
 @dataclass

@@ -136,3 +136,10 @@ def laplacian_stencil(inp_eps: float, bc: bool, kappa: float) -> np.ndarray:
     else:
         m = np.array([[1.0 + inp_eps, -1.0], [-1.0, 1.0 + inp_eps]])
     return kappa * m
+
+
+def mass_stencil(bc: bool) -> np.ndarray:
+    """1-D two-node mass ("inertia") stencil (heat.cpp:24-62)."""
+    if bc:
+        return np.array([[1.0 / 3.0]])
+    return np.array([[1.0 / 3.0, 1.0 / 6.0], [1.0 / 6.0, 1.0 / 3.0]])

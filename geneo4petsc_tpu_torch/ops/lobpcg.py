@@ -1,12 +1,13 @@
-"""Matrix-free batched LOBPCG for the generalized symmetric pencil
-A v = lambda B v.
+"""Batched LOBPCG for the generalized symmetric pencil A v = lambda B v.
 
 The reference computes its GenEO eigenpairs with ARPACK shift-invert +
-MUMPS inner LU (src/geneo.cpp:626-780).  On the structured scale path the
-local operators never materialize, so the eigensolve is blocked LOBPCG
-(Knyazev) over the whole subdomain batch at once, given only batched
-block products, with a shifted inverse T ~ (A + sigma B)^-1 playing the
-role of the reference's shift-invert inner factorization.
+MUMPS inner LU (src/geneo.cpp:626-780).  Here the eigensolve is blocked
+LOBPCG (Knyazev) over the whole subdomain batch at once, given only
+batched block products, with a shifted inverse T ~ (A + sigma B)^-1
+playing the role of the reference's shift-invert inner factorization:
+``matfree_lobpcg`` for the structured scale path, whose local operators
+never materialize, and ``batched_lobpcg`` for the generic path's dense
+[d, n, n] pencils.
 
 Robustness choices for ill-conditioned pencils: B-orthonormalization by
 the symmetric pseudo inverse square root of the Gram matrix (instead of
@@ -24,6 +25,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from . import batched_linalg as bl
 
 
 def _mm_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -138,3 +141,51 @@ def matfree_lobpcg(a_op: Callable, b_op: Callable, t_op: Callable,
     v = c.transpose(1, 2) @ x
     _, rel = _rel_res(a_op(v), b_op(v), theta)
     return theta, v, rel
+
+
+def default_start(d: int, n: int, k: int, dtype,
+                  seed: int = 0) -> torch.Tensor:
+    """LOBPCG start block [d, n, k]: a standard normal draw from a
+    torch.Generator seeded ``seed``, on the host in float64 (the same
+    numbers for every device), cast to ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((d, n, k), generator=gen,
+                       dtype=torch.float64).to(dtype)
+
+
+def batched_lobpcg(a: torch.Tensor, b: torch.Tensor, k: int,
+                   max_it: int = 40, shift: float = 0.1,
+                   x0: torch.Tensor | None = None):
+    """Smallest-k eigenpairs of the batched dense pencil (A, B), both
+    [d, n, n], on their device.
+
+    Returns (w [d, k] ascending, v [d, n, k], res [d, k] relative residual
+    norms).  ``shift``: sigma of the preconditioner (A + sigma B)^-1 —
+    the GenEO threshold (the reference's shift-invert target region).
+    Convergence is soft: max_it iterations always, residuals reported so
+    callers can filter (the reference's 'good enough eigenvectors' EPS
+    tolerance, geneo.cpp:658).
+
+    ``x0`` [d, n, k]: the Gaussian start block before preconditioning
+    (default: ``default_start``, a torch.Generator seeded 0).  A generic
+    Gaussian block overlaps every eigendirection almost surely;
+    canonical basis columns are NOT safe — they can span an exact
+    invariant subspace of block-decoupled local patterns."""
+    d, n, _ = a.shape
+    dtype = a.dtype
+    a = 0.5 * (a + a.transpose(-1, -2))
+    b = 0.5 * (b + b.transpose(-1, -2))
+    # shifted preconditioner factor (SPD: A PSD + sigma * B SPD), with the
+    # jitter fallback for a shifted pencil that is numerically singular
+    t_fac = bl.cholesky_factor(a + shift * b)
+
+    def t_op(r):  # [d, m, n]
+        return torch.cholesky_solve(r.transpose(1, 2), t_fac).transpose(1, 2)
+
+    if x0 is None:
+        x0 = default_start(d, n, k, dtype)
+    x0 = t_op(x0.to(a.device, dtype).transpose(1, 2))
+    # a, b symmetric: the block product of [d, m, n] columns is S A
+    w, v, res = matfree_lobpcg(lambda s: s @ a, lambda s: s @ b, t_op, x0,
+                               max_it=max_it)
+    return w, v.transpose(1, 2), res

@@ -152,6 +152,73 @@ def _ranges(sizes: np.ndarray) -> np.ndarray:
     return np.arange(total, dtype=np.int64) - np.repeat(starts, sizes)
 
 
+def decompose_nodal_fast(mesh: ElementMesh, node_part: np.ndarray,
+                         n_dom: int, compute_intersections: bool = False,
+                         ) -> Decomposition:
+    """O(n log n) vectorized decomposition for the nodal mode (element
+    joins every partition containing one of its nodes) — the many-domain
+    fast path used by the large configurations (the per-domain loop in
+    ``decompose`` is O(n_dom * n)).
+
+    Intersections are skipped by default (only GenEO-2's adaptive gamma
+    consumes them; with thousands of domains the reference would equally
+    be dominated by its O(n_dom^2) connectivity assembly).
+    """
+    n_elems = mesh.n_elems
+    elem_of = np.repeat(np.arange(n_elems, dtype=np.int64),
+                        np.diff(mesh.elem_ptr))
+    node_dom = node_part[mesh.elem_idx]                 # domain per incidence
+    # element-domain membership (unique pairs)
+    key = elem_of * np.int64(n_dom) + node_dom
+    uk = np.unique(key)
+    e_of_pair = uk // n_dom
+    d_of_pair = (uk % n_dom).astype(np.int64)
+    elem_mult = np.bincount(e_of_pair, minlength=n_elems).astype(np.int64)
+    order = np.argsort(d_of_pair, kind="stable")
+    d_sorted = d_of_pair[order]
+    e_sorted = e_of_pair[order]
+    dom_starts = np.searchsorted(d_sorted, np.arange(n_dom + 1))
+    elem_doms = [np.sort(e_sorted[dom_starts[p]:dom_starts[p + 1]])
+                 for p in range(n_dom)]
+
+    # node-domain membership: nodes of every (e, d) pair
+    sizes = np.diff(mesh.elem_ptr)
+    pair_sizes = sizes[e_of_pair]
+    pair_nodes = mesh.elem_idx[
+        mesh.elem_ptr[e_of_pair].repeat(pair_sizes)
+        + _ranges(pair_sizes)]
+    pair_dom = d_of_pair.repeat(pair_sizes)
+    nd_key = np.unique(pair_dom * np.int64(mesh.n_nodes) + pair_nodes)
+    nd_dom = (nd_key // mesh.n_nodes).astype(np.int64)
+    nd_node = nd_key % mesh.n_nodes
+    node_mult = np.bincount(nd_node, minlength=mesh.n_nodes).astype(np.int64)
+    starts = np.searchsorted(nd_dom, np.arange(n_dom + 1))
+    dom_nodes = [nd_node[starts[p]:starts[p + 1]] for p in range(n_dom)]
+    # (nd_key sorted by dom then node -> per-domain node lists are sorted)
+
+    if compute_intersections:
+        inter = []
+        for p in range(n_dom):
+            row = []
+            for q in range(n_dom):
+                if p == q:
+                    row.append(np.zeros(0, dtype=np.int64))
+                else:
+                    common = np.intersect1d(dom_nodes[p], dom_nodes[q],
+                                            assume_unique=True)
+                    row.append(np.searchsorted(dom_nodes[p], common))
+            inter.append(row)
+    else:
+        inter = [[np.zeros(0, dtype=np.int64)] * n_dom
+                 for _ in range(n_dom)]
+
+    return Decomposition(mesh=mesh, n_dom=n_dom, metis_dual=False,
+                         add_overlap=0, elem_doms=elem_doms,
+                         dom_nodes=dom_nodes, node_mult=node_mult,
+                         elem_mult=elem_mult, intersections=inter,
+                         node_part=np.asarray(node_part, np.int64))
+
+
 def partition_and_decompose(mesh: ElementMesh, n_dom: int,
                             metis_dual: bool = True, add_overlap: int = 0,
                             ) -> Decomposition:

@@ -4,7 +4,8 @@ The reference partitions with METIS_PartMeshDual (element-based, nCommon=1)
 or METIS_PartMeshNodal (node-based) — src/geneo4PETSc.cpp:381-445.  The
 package replaces Metis with a deterministic greedy-growing + boundary-refine
 k-way partitioner (same role, same dual/nodal semantics, reproducible across
-runs/platforms).  A native C++ implementation of the same algorithm can
+runs/platforms), with a vectorized brick partition for structured grids
+used by the large configurations.  A native C++ implementation of the same algorithm can
 be built from native/ and is used automatically when present
 (geneo4petsc_tpu_torch.partition.native).
 
@@ -293,3 +294,26 @@ def partition_mesh_py(mesh: ElementMesh, n_parts: int, dual: bool = True,
         labels, counts = np.unique(node_part[nodes], return_counts=True)
         elem_part[e] = labels[np.argmax(counts)]
     return elem_part, node_part
+
+
+def partition_structured_grid(shape: tuple[int, ...], grid: tuple[int, ...]
+                              ) -> np.ndarray:
+    """O(n) brick partition of a structured grid of nodes.
+
+    ``shape`` = grid extents (i fastest, matching getIndex i + Ni*j + Ni*Nj*k);
+    ``grid`` = number of parts along each axis.  Used by the large
+    configurations, where running a graph partitioner on the host would
+    dominate setup time.
+    """
+    axes = []
+    for ext, g in zip(shape, grid):
+        # balanced contiguous blocks along this axis
+        bounds = np.floor(np.arange(ext, dtype=np.float64) * g / ext).astype(np.int64)
+        axes.append(bounds)
+    mesh_idx = np.meshgrid(*axes, indexing="ij")
+    part = np.zeros_like(mesh_idx[0])
+    for d in range(len(shape)):
+        part = part * grid[d] + mesh_idx[d]
+    # node id = i + Ni*j + Ni*Nj*k  ->  index order ('ij' with i first) must
+    # be flattened with i fastest: transpose before ravel
+    return part.transpose(tuple(range(len(shape) - 1, -1, -1))).ravel()

@@ -36,7 +36,7 @@ import torch
 
 from ..config import GenEOOptions, KSPOptions
 from ..ops import lobpcg
-from ..structured.geneo import default_start
+from ..ops.lobpcg import default_start
 from ..structured.grid import laplacian_grid
 from ..structured.solve import solve_structured
 

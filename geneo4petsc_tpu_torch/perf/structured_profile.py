@@ -39,11 +39,11 @@ import numpy as np
 import torch
 
 from ..config import GenEOOptions
-from ..ops.lobpcg import matfree_lobpcg
+from ..ops.lobpcg import default_start, matfree_lobpcg
 from ..structured import fdm, halo, solvers
 from ..structured import local_ops as lo
 from ..structured.decompose import StructuredDecomposition
-from ..structured.geneo import _block_ops, default_start, setup_structured
+from ..structured.geneo import _block_ops, setup_structured
 from ..structured.grid import global_stencil, laplacian_grid
 from ..structured.solve import make_structured_inner
 from ..utils.cuda_timing import time_ms

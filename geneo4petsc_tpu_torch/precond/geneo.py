@@ -13,14 +13,17 @@ Mapping onto one device:
   * MUMPS per-domain LU         ->  batched Cholesky/LU, or precomputed
     block inverses applied by the fused kernel K1 (ops/local_kernels.py)
   * SLEPc/ARPACK shift-invert   ->  batched dense generalized eigh on the
-    host (float64 LAPACK)
+    host (float64 LAPACK, ``els2 eigh``), or batched LOBPCG on the
+    batch's device with Sylvester-inertia candidate counts (``els2
+    lobpcg``, the iterative route)
   * VecScatter halo exchange    ->  gather / table scatter-add
   * rank-0 offload of Z and E   ->  replication (the tiny coarse
     factorization lives next to the batch; -geneo_offload is a no-op)
 
-Setup is host-orchestrated: the eigensolves, the coarse basis and
-E = Z^T A Z run in NumPy/SciPy; the level-1 factorization runs on the
-batch's device, and the finished products stay there.
+Setup is host-orchestrated: the dense eigensolves, the coarse basis and
+E = Z^T A Z run in NumPy/SciPy; the level-1 factorization, and with
+``els2 lobpcg`` on a card the pencils, inertia counts and LOBPCG, run on
+the batch's device, and the finished products stay there.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from ..assembly.assemble import SubdomainBatch, robin_blocks
 from ..config import GenEOOptions
 from ..ops import batched_linalg as bl
+from ..ops.lobpcg import batched_lobpcg, default_start
 from ..ops.local_kernels import fused_local_solve
 
 
@@ -56,10 +60,10 @@ class GenEOStats:
     # pruning pass before factorizing E
     e_pruned: int = 0
     # [n_dom] columns selected by the eigenproblem windows + Nicolaides,
-    # before the pruning pass (structured setup; None elsewhere)
+    # before the pruning pass
     raw_dim_e: np.ndarray | None = None
     # [n_dom] LOBPCG relative residual, max over the kept pairs
-    # (structured setup; None for the dense-eigh route)
+    # (None for the dense-eigh route)
     lobpcg_res: np.ndarray | None = None
 
 
@@ -156,10 +160,68 @@ def _with_pad_diag(a: np.ndarray, mask: np.ndarray, value: float
     return out
 
 
+def _steer_pad(a: torch.Tensor, mask: torch.Tensor, value: float
+               ) -> torch.Tensor:
+    """Tensor twin of ``_with_pad_diag`` on ``a``'s device."""
+    out = a.clone()
+    diag = out.diagonal(dim1=-2, dim2=-1)
+    diag.copy_(torch.where(mask, diag, (diag - 1.0) + value))
+    return out
+
+
+def _dadird_device(batch: SubdomainBatch) -> torch.Tensor:
+    """D A_Dir D (buildCoarseSpaceWithGenEO, geneo.cpp:1243-1247)."""
+    d = 1.0 / batch.mult
+    return batch.a_dir * d[:, :, None] * d[:, None, :]
+
+
+def _pencil_tau_device(batch: SubdomainBatch, steer: float):
+    """GenEO-1 tau pencil on the batch's device: (A_Neu steered,
+    D A_Dir D)."""
+    return _steer_pad(batch.a_neu, batch.mask, steer), _dadird_device(batch)
+
+
+def _pencil_g2_device(batch: SubdomainBatch, optim: float, kind: str):
+    """GenEO-2 pencils on the batch's device, in LOBPCG (smallest
+    eigenpair) form:
+
+    tau:   (A_Neu steered, A_Rob)            — (19) of R4, smallest lambda
+    gamma: (A_Rob steered, D A_Dir D)        — (21) of R4 REVERSED: its
+           largest lambda are the smallest mu = 1/lambda of the swapped
+           pencil, which is what LOBPCG computes.  Pad slots get a 1e6
+           diagonal on the steered side so they never enter the window."""
+    a_rob = robin_blocks(batch, optim)           # _robin_from_arrays
+    if kind == "tau":
+        return _steer_pad(batch.a_neu, batch.mask, 1e6), a_rob
+    return _steer_pad(a_rob, batch.mask, 1e6), _dadird_device(batch)
+
+
+def _quad_forms(a, b, mask: torch.Tensor):
+    """Nicolaides near-kernel quadratic forms 1^T A 1 and 1^T B 1 per
+    domain over the masked slots, in float64 (host arrays or device
+    tensors)."""
+    if isinstance(a, np.ndarray):
+        ones = mask.cpu().numpy().astype(np.float64)
+        return (np.einsum("dn,dnm,dm->d", ones, a, ones, dtype=np.float64),
+                np.einsum("dn,dnm,dm->d", ones, b, ones, dtype=np.float64))
+    ones = mask.to(torch.float64)
+
+    def form(m):
+        return torch.einsum("dn,dnm,dm->d", ones, m.double(),
+                            ones).cpu().numpy()
+
+    return form(a), form(b)
+
+
 def _device_inverse(m_blocks: torch.Tensor) -> torch.Tensor:
     """Batched SPD inverse on the blocks' device: Cholesky (with the
     jitter fallback) + cholesky_inverse, row-major as K1 reads it."""
     return torch.cholesky_inverse(bl.cholesky_factor(m_blocks)).contiguous()
+
+
+# domains per LOBPCG run on a card: caps the device memory of the pencil
+# staging at large domain counts
+LOBPCG_CHUNK = 1024
 
 
 def _sync(device: torch.device) -> None:
@@ -328,20 +390,32 @@ def factor_e(e: np.ndarray, dtype, e_dtype=None
 
 def setup_geneo(batch: SubdomainBatch, opts: GenEOOptions,
                 b: torch.Tensor | None = None, decomp=None, timers=None,
-                a_csr=None) -> tuple[GenEOPreconditioner, GenEOStats]:
+                a_csr=None, lobpcg_start=None
+                ) -> tuple[GenEOPreconditioner, GenEOStats]:
     """Full preconditioner setup (PCSetUp -> setUpGenEOPC path).
 
-    The level-1 factorization runs on the batch's device; the level-2
-    eigensolves, the coarse basis Z and E = Z^T A Z run on the host in
-    float64 (the reference's cost model: ARPACK/MUMPS/LAPACK setup on
-    CPU, src/geneo.cpp:626-780).  For the efficient-hybrid variants
+    The level-1 factorization runs on the batch's device.  With ``els2
+    eigh`` the level-2 eigensolves run on the host in float64 (the
+    reference's cost model: ARPACK/MUMPS/LAPACK setup on CPU,
+    src/geneo.cpp:626-780); with ``els2 lobpcg`` the pencils, the
+    Sylvester inertia counts and the batched LOBPCG run on the batch's
+    device when it is a card (in chunks of ``LOBPCG_CHUNK`` domains), on
+    the host pencils otherwise.  The coarse basis Z and E = Z^T A Z are
+    built on the host in float64.  For the efficient-hybrid variants
     (E1/E2) and a given ``b``, the initial guess is x0 = Q b
     (setUpLevel2, geneo.cpp:1601-1604).
 
+    ``lobpcg_start(d, n, k, dtype)``: the [d, n, k] Gaussian start block
+    of one LOBPCG run, before preconditioning (default
+    ``ops.lobpcg.default_start``, a torch.Generator seeded 0); one draw
+    per domain chunk.
+
     ``timers``: optional utils.timers.Timers — records the reference's
     per-phase setup taxonomy (l1_minv, l2_{tau,gamma}_{syl,eig},
-    l2_{syl,eig,z,e}; geneo.hpp:113-123)."""
-    pc, stats = _setup_geneo_impl(batch, opts, decomp, timers, a_csr)
+    l2_{syl,eig,z,e}; geneo.hpp:113-123) and, on the LOBPCG route, the
+    split of l2_eig into l2_pencil, l2_inertia and l2_lobpcg."""
+    pc, stats = _setup_geneo_impl(batch, opts, decomp, timers, a_csr,
+                                  lobpcg_start)
     if opts.eff_hybrid and b is not None:
         pc = dataclasses.replace(pc, x0=pc.apply_q(b))
     return pc, stats
@@ -369,15 +443,102 @@ def _assembled_csr_from_batch(batch: SubdomainBatch, n_real):
     return m
 
 
+def _lobpcg_problem(batch: SubdomainBatch, opts: GenEOOptions, kind: str,
+                    host_pencil, thr: np.ndarray, cut: int, timers,
+                    start) -> dict:
+    """One GenEO eigenproblem by batched LOBPCG (the ARPACK-equivalent
+    iterative route, SURVEY hard part #1): k candidates per domain, from
+    -geneo_cut, or 8 under -geneo_no_syl, or the Sylvester inertia of
+    (A - theta B) through batched LDL^T (Cholesky cost, the estimate the
+    reference feeds ARPACK's nev, geneo.cpp:502-560, 626-661).
+
+    The gamma problem wants the LARGEST pencil eigenvalues; LOBPCG
+    computes the smallest, so it runs on the SWAPPED pencil (both sides
+    SPD) and the eigenvalues come back as lambda = 1/mu.  On a card the
+    pencils are built there from the batch (``host_pencil`` is then
+    None); otherwise ``host_pencil`` gives the host (A, B) pair, already
+    steered.  Returns w [d, k], v [d, n, k] and res [d, k] (host float64,
+    guard columns dropped), the inertia estimates (or None) and the
+    Nicolaides quadratic forms of the tau problem (or None)."""
+    def mark(name, t0):
+        if timers is not None:
+            timers.add(name, time.perf_counter() - t0)
+        return time.perf_counter()
+
+    device, dtype = batch.device, batch.dtype
+    reversed_pencil = kind == "gamma"
+    t = time.perf_counter()
+    if host_pencil is None:
+        if opts.lvl2_num == 1:
+            a_full, b_full = _pencil_tau_device(batch, 1e6)
+        else:
+            a_full, b_full = _pencil_g2_device(batch, opts.optim, kind)
+        _sync(device)
+    else:
+        a_full, b_full = (torch.from_numpy(np.ascontiguousarray(m))
+                          for m in host_pencil)
+    t = mark("l2_pencil", t)
+    # the quadratic forms see only masked slots: the steered pad
+    # diagonal does not enter them
+    forms = _quad_forms(*(host_pencil or (a_full, b_full)), batch.mask) \
+        if kind == "tau" else None
+
+    estim = None
+    if cut > 0:
+        k_cand = cut
+    elif opts.no_syl:
+        k_cand = 8
+    else:
+        # the swapped gamma pencil wants mu < 1/thr: the same negative
+        # inertia count on its own arrays
+        thr_used = 1.0 / np.maximum(thr, 1e-12) if reversed_pencil else thr
+        th = torch.tensor(thr_used, dtype=a_full.dtype, device=a_full.device)
+        n_neg, _pos = bl.ldlt_inertia(a_full - th[:, None, None] * b_full,
+                                      batch.mask.to(a_full.device))
+        estim = n_neg.cpu().numpy().astype(np.int64)
+        k_cand = int(np.clip(estim.max(), 1, 32))
+        t = mark("l2_inertia", t)
+    k_cand = min(k_cand, batch.n_max)
+    # guard vectors: GenEO-2 halves the candidate count per pencil and its
+    # near-threshold spectra are clustered — a few extra working columns
+    # sharpen the wanted Ritz pairs (GenEO-1 stays guard-free: its
+    # windows are gapped)
+    k_run = min(k_cand + (4 if opts.lvl2_num == 2 else 0), batch.n_max)
+    max_it = min(int(opts.els2.max_it), 200) \
+        if opts.els2.max_it < 10000 else 50
+    shift = float(np.mean(1.0 / np.maximum(thr, 1e-12))
+                  if reversed_pencil else np.mean(thr))
+    # on a card, domain chunks cap the memory of the pencil staging
+    n_dom = batch.n_dom
+    chunk = LOBPCG_CHUNK if device.type == "cuda" else n_dom
+    w_parts, v_parts, r_parts = [], [], []
+    for lo in range(0, n_dom, chunk):
+        hi = min(lo + chunk, n_dom)
+        w, v, res = batched_lobpcg(
+            a_full[lo:hi], b_full[lo:hi], k=k_run, max_it=max_it,
+            shift=shift, x0=start(hi - lo, batch.n_max, k_run, dtype))
+        w_parts.append(w[:, :k_cand].double().cpu().numpy())
+        v_parts.append(v[:, :, :k_cand].double().cpu().numpy())
+        r_parts.append(res[:, :k_cand].double().cpu().numpy())
+    w_np = np.concatenate(w_parts, axis=0)
+    if reversed_pencil:
+        # map the swapped-pencil mu back to lambda = 1/mu
+        w_np = 1.0 / np.maximum(w_np, np.finfo(np.float64).tiny)
+    mark("l2_lobpcg", t)
+    return dict(w=w_np, v=np.concatenate(v_parts, axis=0),
+                res=np.concatenate(r_parts, axis=0), estim=estim,
+                forms=forms)
+
+
 def _setup_geneo_impl(batch: SubdomainBatch, opts: GenEOOptions,
-                      decomp=None, timers=None, a_csr=None
+                      decomp=None, timers=None, a_csr=None,
+                      lobpcg_start=None
                       ) -> tuple[GenEOPreconditioner, GenEOStats]:
     import scipy.sparse as sp
 
     opts.validate()
-    if opts.els2.type != "eigh":
-        raise ValueError(f"els2 type {opts.els2.type!r} is not ported yet "
-                         "(ROADMAP Queue 1, item 10); use eigh")
+    if batch.dtype == torch.float32:
+        bl.require_full_f32()
 
     def mark(name, t0):
         if timers is not None:
@@ -430,63 +591,96 @@ def _setup_geneo_impl(batch: SubdomainBatch, opts: GenEOOptions,
             x0=torch.zeros(n_dof, dtype=dtype, device=device))
         return pc, stats
 
-    # ----- level 2: batched local generalized eigenproblems (host) -----
-    a_neu_np = batch.a_neu.cpu().numpy()
-    a_dir_np = batch.a_dir.cpu().numpy()
-    d_np = 1.0 / mult_np
-    dadird = a_dir_np * d_np[:, :, None] * d_np[:, None, :]  # D A_Dir D
+    # ----- level 2: batched local generalized eigenproblems -----
+    use_lobpcg = opts.els2.type == "lobpcg"
+    # the LOBPCG route builds its pencils on the card from the batch; the
+    # host routes build them in NumPy
+    host = not (use_lobpcg and device.type == "cuda")
+    if host:
+        a_neu_np = batch.a_neu.cpu().numpy()
+        a_dir_np = batch.a_dir.cpu().numpy()
+        d_np = 1.0 / mult_np
+        dadird = a_dir_np * d_np[:, :, None] * d_np[:, None, :]  # D A_Dir D
     cut = opts.cut
-    problems = []  # (kind, A, B, thr[n_dom])
+    problems = []  # (kind, thr[n_dom], host (A, B) or None)
     if opts.lvl2_num == 1:
         # GenEO-1: A_Neu v = lambda (D A_Dir D) v, threshold tau
         # (Def 7.14 of R1; geneo.cpp:1270-1273)
-        problems.append(("tau", a_neu_np, dadird, np.full(n_dom, opts.tau)))
+        problems.append(("tau", np.full(n_dom, opts.tau),
+                         (a_neu_np, dadird) if host else None))
     else:
         # GenEO-2 halves -geneo_cut between its two problems
         # (geneo.cpp:1275)
         if cut >= 2:
             cut = cut // 2
-        a_rob = robin_blocks(batch, opts.optim).cpu().numpy()
+        a_rob = robin_blocks(batch, opts.optim).cpu().numpy() if host \
+            else None
         tl = _tau_loc(mult_np, mask_np, opts.tau, opts.cst)
         gl = _gamma_loc(decomp.adjacency() if decomp is not None else
                         np.zeros((n_dom, n_dom), dtype=bool),
                         n_dom, opts.gamma, opts.cst)
         stats.tau_loc, stats.gamma_loc = tl, gl
         # (19) of R4: A_Neu v = lambda A_Rob v, threshold tauLoc
-        problems.append(("tau", a_neu_np, a_rob, tl))
+        problems.append(("tau", tl, (a_neu_np, a_rob) if host else None))
         # (21) of R4: (D A_Dir D) v = lambda A_Rob v, threshold gammaLoc
-        problems.append(("gamma", dadird, a_rob, gl))
+        problems.append(("gamma", gl, (dadird, a_rob) if host else None))
 
     eps64 = np.finfo(np.float64).eps
     eps32 = np.finfo(np.float32).eps
     cols: list[list[np.ndarray]] = [[] for _ in range(n_dom)]
     evals: list[list[float]] = [[] for _ in range(n_dom)]
 
-    for kind, a_p, b_p, thr in problems:
+    for kind, thr, pencil in problems:
         t = time.perf_counter()
-        steer = 1e6 if kind == "tau" else 1e-6
-        w_np, v_np = bl.generalized_eigh_host(
-            _with_pad_diag(a_p, mask_np, steer), b_p)
+        if use_lobpcg:
+            if pencil is not None:
+                a_p, b_p = pencil
+                # the gamma problem runs on the swapped pencil
+                pencil = ((_with_pad_diag(a_p, mask_np, 1e6), b_p)
+                          if kind == "tau" else
+                          (_with_pad_diag(b_p, mask_np, 1e6), a_p))
+            sol = _lobpcg_problem(batch, opts, kind, pencil, thr, cut,
+                                  timers, lobpcg_start or default_start)
+            w_np, v_np = sol["w"], sol["v"]
+        else:
+            a_p, b_p = pencil
+            steer = 1e6 if kind == "tau" else 1e-6
+            w_np, v_np = bl.generalized_eigh_host(
+                _with_pad_diag(a_p, mask_np, steer), b_p)
         if timers is not None:
             dt = time.perf_counter() - t
             timers.add("l2_eig", dt)
             timers.add(f"l2_{kind}_eig", dt)
         t = time.perf_counter()
-        keep, estim = _select_columns(w_np, kind, thr, n_real,
-                                      opts.no_syl, cut)
+        if use_lobpcg:
+            # every computed candidate inside the window is kept: [0, tau]
+            # / [gamma, inf), the reference's post-solve filter
+            # (geneo.cpp:713-714); no inertia estimates under a cut or
+            # -geneo_no_syl (the no_syl convention)
+            keep = [np.flatnonzero(w_np[p] <= thr[p]) if kind == "tau"
+                    else np.flatnonzero(w_np[p] >= thr[p])
+                    for p in range(n_dom)]
+            estim = sol["estim"]
+            # kept-pair residuals (the checkEPSSolve role,
+            # geneo.cpp:577-624): the CLI warns above the EPS tolerance
+            kept_res = np.array([sol["res"][p, keep[p]].max()
+                                 if keep[p].size else 0.0
+                                 for p in range(n_dom)])
+            stats.lobpcg_res = kept_res if stats.lobpcg_res is None \
+                else np.maximum(stats.lobpcg_res, kept_res)
+        else:
+            keep, estim = _select_columns(w_np, kind, thr, n_real,
+                                          opts.no_syl, cut)
         if timers is not None:
             dt = time.perf_counter() - t
             timers.add("l2_syl", dt)
             timers.add(f"l2_{kind}_syl", dt)
-        if not opts.no_syl:
+        if not opts.no_syl and estim is not None:
             stats.estim_dim_e += estim
         if kind == "tau":
             # Nicolaides near-kernel test: quadratic forms 1^T A 1 / 1^T B 1
-            ones_all = mask_np.astype(np.float64)
-            num_all = np.einsum("dn,dnm,dm->d", ones_all, a_p, ones_all,
-                                dtype=np.float64)
-            den_all = np.einsum("dn,dnm,dm->d", ones_all, b_p, ones_all,
-                                dtype=np.float64)
+            num_all, den_all = sol["forms"] if use_lobpcg else \
+                _quad_forms(a_p, b_p, batch.mask)
         for p in range(n_dom):
             kept_w = w_np[p, keep[p]]
             for i in keep[p]:
@@ -516,6 +710,7 @@ def _setup_geneo_impl(batch: SubdomainBatch, opts: GenEOOptions,
         stats.real_dim_e[p] = len(cols[p])
 
     counts = stats.real_dim_e
+    stats.raw_dim_e = counts.copy()
     offsets = np.zeros(n_dom, np.int64)
     np.cumsum(counts[:-1], out=offsets[1:])
     dim_e = int(counts.sum())
@@ -523,6 +718,7 @@ def _setup_geneo_impl(batch: SubdomainBatch, opts: GenEOOptions,
 
     # D-weighted coarse basis Z ((7.49) of R1; fillZE2L geneo.cpp:249-286)
     t = time.perf_counter()
+    d_np = 1.0 / mult_np
     z_np = np.zeros((n_dom, batch.n_max, k_max), dtype=np.float64)
     colids_np = np.full((n_dom, k_max), dim_e, dtype=np.int64)
     for p in range(n_dom):
@@ -578,7 +774,10 @@ def _setup_geneo_impl(batch: SubdomainBatch, opts: GenEOOptions,
         e = e[np.ix_(keep, keep)]
         stats.real_dim_e = new_counts
         dim_e, k_max, z_np = new_dim_e, new_k_max, z2
-    ev_np, ew_np, stats.e_null = factor_e(e, np.float64)
+    # the Cholesky path is gated in the precision the factors are applied
+    # in; the truncation floor is E's own float64
+    ev_np, ew_np, stats.e_null = factor_e(
+        e, torch.empty((), dtype=dtype).numpy().dtype, e_dtype=np.float64)
 
     def put(a, dt=dtype):
         return torch.tensor(np.ascontiguousarray(a), dtype=dt,

@@ -21,7 +21,9 @@ from .krylov import common as kcm
 from .krylov.cg import cg_solve
 from .krylov.gmres import gmres_solve
 from .partition.decompose import partition_and_decompose
+from .precond.bjacobi import setup_bjacobi
 from .precond.geneo import GenEOStats, setup_geneo
+from .precond.mg import setup_mg
 from .utils.timers import Timers
 
 
@@ -101,6 +103,17 @@ def solve_assembled(assembled: AssembledProblem,
         pc_name = geneo.name
         if geneo.lvl2_num:
             info_l2 = f"{geneo.els2.type} cholesky"
+    elif pc_type == "bjacobi":
+        pc = setup_bjacobi(assembled.a_csr, batch.n_dom, device, dtype)
+        pc_apply, x0 = pc.apply, None
+        pc_name = "bjacobi"
+    elif pc_type == "mg":
+        pc = setup_mg(assembled.a_csr, device, dtype,
+                      cycle_type=driver.mg_cycle_type,
+                      smooth_down=driver.mg_smooth_down,
+                      smooth_up=driver.mg_smooth_up)
+        pc_apply, x0 = pc.apply, None
+        pc_name = "mg"
     elif pc_type == "none":
         pc = pc_apply = None
         x0 = torch.zeros(n, dtype=dtype, device=device)

@@ -32,7 +32,7 @@ The optional sigma shifts by sigma * (x)_a D_a — for the Neumann axes
 that is sigma * diag(kappa/mult), the SPD shift used as the LOBPCG
 shift-invert preconditioner (the ARPACK STSINVERT analogue,
 src/geneo.cpp:635-650).  The products run in the factor's dtype at full
-precision: callers keep TF32 off (``structured.geneo.require_full_f32``).
+precision: callers keep TF32 off (``ops.batched_linalg.require_full_f32``).
 """
 
 from __future__ import annotations

@@ -37,7 +37,8 @@ import torch.nn.functional as F
 
 from ..config import GenEOOptions
 from ..ops import batched_linalg as bl
-from ..ops.lobpcg import matfree_lobpcg
+from ..ops.batched_linalg import require_full_f32
+from ..ops.lobpcg import default_start, matfree_lobpcg
 from ..precond.geneo import (GenEOStats, _gamma_loc, factor_e,
                              prune_dependent_columns)
 from . import fdm, halo, solvers
@@ -48,28 +49,6 @@ from .grid import GlobalStencil, global_stencil
 
 # device memory budget of one LOBPCG domain chunk (~16 block panels)
 LOBPCG_BUDGET_BYTES = 6e9
-
-
-def require_full_f32() -> None:
-    """Refuse to run with TF32 products: every float32 product of this
-    path (FDM transforms, LOBPCG Gram matrices, E windows) must run at
-    full float32 precision, as the JAX package's precision="highest"."""
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "the structured path needs full float32 products: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False and "
-            "torch.set_float32_matmul_precision('highest')")
-
-
-def default_start(d: int, n: int, k: int, dtype,
-                  seed: int = 0) -> torch.Tensor:
-    """LOBPCG start block [d, n, k]: a standard normal draw from a
-    torch.Generator seeded ``seed``, on the host in float64 (the same
-    numbers for every device), cast to ``dtype``."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randn((d, n, k), generator=gen,
-                       dtype=torch.float64).to(dtype)
 
 
 @dataclass(frozen=True)

@@ -21,10 +21,11 @@ from ..krylov.cg import cg_solve
 from ..krylov.gmres import gmres_solve
 from ..krylov.refine import (RefinedResult, refined_solve,
                              refined_solve_device)
+from ..ops.batched_linalg import require_full_f32
 from ..precond.geneo import GenEOStats
 from ..utils.timers import Timers
 from .decompose import StructuredDecomposition
-from .geneo import StructuredGenEO, require_full_f32, setup_structured
+from .geneo import StructuredGenEO, setup_structured
 from .grid import StructuredGrid, global_stencil
 
 

@@ -1,9 +1,10 @@
 """Carry state across from the JAX package.
 
-The JAX package's ``SubdomainBatch`` and ``GenEOPreconditioner`` are
-handed over as NumPy arrays (their data leaves) plus their static fields,
-and rebuilt here as the port's objects on a given device, so both
-packages can apply the very same preconditioner.  Only NumPy arrays
+The JAX package's ``SubdomainBatch``, ``GenEOPreconditioner``,
+``BlockJacobiPreconditioner`` and ``MGPreconditioner`` are handed over as
+NumPy arrays (their data leaves) plus their static fields, and rebuilt
+here as the port's objects on a given device, so both packages can apply
+the very same preconditioner.  Only NumPy arrays
 cross: nothing here imports JAX.
 """
 
@@ -13,7 +14,9 @@ import numpy as np
 import torch
 
 from ..assembly.assemble import SubdomainBatch, batch_from_host
+from ..precond.bjacobi import BlockJacobiPreconditioner, bjacobi_from_factors
 from ..precond.geneo import GenEOPreconditioner
+from ..precond.mg import MGPreconditioner, mg_from_levels
 
 _BATCH_KEYS = ("gids", "mask", "mult", "a_neu", "a_dir")
 PC_META = ("lvl1", "lvl2", "hybrid", "eff_hybrid", "dim_e", "k_max",
@@ -67,3 +70,38 @@ def pc_from_arrays(d: dict, meta: dict, device) -> GenEOPreconditioner:
         colids=put(d.get("colids"), torch.int64),
         e_evecs=put(d.get("e_evecs")), e_eig_inv=put(d.get("e_eig_inv")),
         x0=put(d["x0"]))
+
+
+def _dtype_of(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
+
+
+def bjacobi_from_arrays(d: dict, meta: dict, device
+                        ) -> BlockJacobiPreconditioner:
+    """``d``: the leaves ``factor``, ``pattern`` (None for the "exact"
+    sub-type) and ``sizes`` as arrays; ``meta``: ``n_dof`` and
+    ``sub_type``.  The dtype follows ``factor``."""
+    factor = np.asarray(d["factor"])
+    pattern = None if d["pattern"] is None else torch.tensor(
+        np.asarray(d["pattern"]), device=device)
+    return bjacobi_from_factors(
+        int(meta["n_dof"]), str(meta["sub_type"]),
+        torch.tensor(factor, dtype=_dtype_of(factor), device=device),
+        pattern, np.asarray(d["sizes"]))
+
+
+def mg_from_arrays(d: dict, meta: dict, device) -> MGPreconditioner:
+    """``d``: the per-level leaves ``vals``, ``cols``, ``rows``,
+    ``inv_diag`` and ``agg`` (sequences of arrays) and ``coarse_factor``;
+    ``meta``: ``ns``, ``omega``, ``cycle_type``, ``smooth_down`` and
+    ``smooth_up``.  The dtype follows ``coarse_factor``."""
+    fac = np.asarray(d["coarse_factor"])
+    levels = [tuple(np.asarray(x) for x in lv) for lv in
+              zip(d["vals"], d["cols"], d["rows"], d["inv_diag"])]
+    return mg_from_levels(
+        levels, [np.asarray(a) for a in d["agg"]],
+        torch.tensor(fac, dtype=_dtype_of(fac), device=device),
+        [int(n) for n in meta["ns"]], omega=float(meta["omega"]),
+        cycle_type=str(meta["cycle_type"]),
+        smooth_down=int(meta["smooth_down"]),
+        smooth_up=int(meta["smooth_up"]))

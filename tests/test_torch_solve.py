@@ -1,14 +1,13 @@
-"""End-to-end solves of the PyTorch port against the JAX package and the
-pinned iteration counts (tst/golden/iteration_counts.json).
+"""End-to-end solves of the PyTorch port against the JAX package (the
+pinned iteration counts of tst/golden/iteration_counts.json are held by
+tests/test_torch_golden_*.py).
 
 Tolerances: iteration counts and reasons are equal; solutions agree to
 1e-6 relative, the size of a few rtol-converged Krylov steps' roundoff
 differences between the two packages' summation orders."""
 
 import io
-import json
 import os
-import re
 import subprocess
 import sys
 
@@ -28,12 +27,7 @@ from geneo4petsc_tpu_torch.models import laplacian
 from geneo4petsc_tpu_torch.solver import solve_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN = os.path.join(REPO, "tst", "golden", "iteration_counts.json")
 GEN_ARGS = "--size 12 --dim 2 --kappa 100. minmax"
-
-_RE_SOLVE = re.compile(r"INFO: solve - (converged|diverged) \(([A-Z_]+)\), "
-                       r"(\d+) iteration\(s\)")
-_RE_DIME = re.compile(r"real dimE (\d+) .*nicolaides (\d+)")
 
 
 def _opts(mod_geneo, mod_ksp, mod_drv, lvl1, lvl2, ksp_type, dls1):
@@ -72,51 +66,6 @@ def test_solve_mesh_matches_jax(gen_args, ksp_type, pc_type, lvl1, lvl2,
                                   np.isnan(np.asarray(ref.result.history)))
 
 
-def _golden_cases():
-    with open(GOLDEN) as f:
-        golden = json.load(f)
-    return sorted((k, v) for k, v in golden.items()
-                  if k.startswith("laplacian-") and "-metis=dual" in k
-                  and "pc=geneo" in k)
-
-
-def _golden_args(name: str) -> list[str]:
-    """The CLI arguments tst/iters.py uses for one golden entry."""
-    m = re.search(r"pc=geneo(ASM|SORAS)([HE]?\d)", name)
-    lvl1, lvl2 = m.group(1), m.group(2)
-    args = ["--inpLibA", "laplacian",
-            "--inpLibArg", "--size#10#--weakScaling#1#--dim#2",
-            "--nbPart", "2", "--metisDual", "--device", "cpu",
-            "-ksp_rtol", "1.e-05", "-ksp_atol", "1.e-05",
-            "-ksp_max_it", "1000", "-ksp_gmres_restart", "1000",
-            "-pc_type", "geneo", "-geneo_lvl", f"{lvl1},{lvl2}"]
-    if "-overlap1" in name:
-        args += ["--addOverlap", "1"]
-    if "-offload" in name:
-        args += ["-geneo_offload"]
-    if lvl2 != "0":
-        tg = ("0.2", "12.") if "-tau=0.2" in name else ("0.1", "8.")
-        args += ["-geneo_tau", tg[0], "-geneo_gamma", tg[1]]
-    if lvl1 == "SORAS":
-        args += ["-geneo_optim", "0.00"]
-    return args
-
-
-@pytest.mark.parametrize("name,want", _golden_cases(),
-                         ids=[k for k, _ in _golden_cases()])
-def test_cli_reproduces_golden_counts(name, want):
-    buf = io.StringIO()
-    assert cli.run(_golden_args(name), out=buf) == 0
-    log = buf.getvalue()
-    m = _RE_SOLVE.search(log)
-    assert m is not None and m.group(1) == "converged", log
-    got = {"its": int(m.group(3))}
-    md = _RE_DIME.search(log)
-    if md is not None:
-        got["dim_e"], got["nicolaides"] = int(md.group(1)), int(md.group(2))
-    assert got == want
-
-
 def test_cli_info_lines_match_jax():
     args = ["--inpLibA", "laplacian", "--inpLibArg",
             "--size#12#--dim#2#--kappa#1000.#minmax", "--nbPart", "4",
@@ -142,9 +91,6 @@ def test_cli_info_lines_match_jax():
     (["--debug", "log"], "item 11"),
     (["-geneo_dbg", "log,1"], "item 11"),
     (["-geneo_chk", "1"], "item 11"),
-    (["-els2_type", "lobpcg"], "item 10"),
-    (["-pc_type", "bjacobi"], "item 9"),
-    (["-pc_type", "mg"], "item 9"),
 ])
 def test_cli_rejects_unported_options(extra, item, capsys):
     args = ["--inpLibA", "laplacian", "--inpLibArg", "--size#4#--dim#2",
@@ -152,6 +98,37 @@ def test_cli_rejects_unported_options(extra, item, capsys):
     assert cli.run(args, out=io.StringIO()) == 1
     err = capsys.readouterr().err
     assert "not ported" in err and item in err
+
+
+@pytest.mark.parametrize("extra,pc_line", [
+    (["-els2_type", "lobpcg", "-geneo_lvl", "ASM,E1"],
+     "L2 lobpcg cholesky"),
+    (["-els2_type", "krylovschur", "-geneo_lvl", "SORAS,2", "-geneo_cut",
+      "2"], "L2 lobpcg cholesky"),
+    (["-pc_type", "bjacobi"], "INFO: bjacobi pc"),
+    (["-pc_type", "mg", "-pc_mg_cycle_type", "w", "-pc_mg_smoothdown", "2",
+      "-pc_mg_smoothup", "2"], "INFO: mg pc"),
+])
+def test_cli_runs_comparison_pcs_and_lobpcg(extra, pc_line):
+    """The options that exited 1 before their modules were ported:
+    -pc_type bjacobi|mg and -els2_type lobpcg (krylovschur maps to it)
+    on the generic path."""
+    args = ["--inpLibA", "laplacian", "--inpLibArg", "--size#8#--dim#2",
+            "--nbPart", "2", "--device", "cpu", "-ksp_type", "cg",
+            "-pc_type", "geneo"] + extra
+    buf = io.StringIO()
+    assert cli.run(args, out=buf) == 0
+    assert pc_line in buf.getvalue()
+    assert "INFO: solve - converged" in buf.getvalue()
+
+
+def test_cli_default_pc_is_bjacobi():
+    """PETSc's parallel default: no -pc_type runs block Jacobi."""
+    buf = io.StringIO()
+    assert cli.run(["--inpLibA", "laplacian", "--inpLibArg",
+                    "--size#8#--dim#2", "--device", "cpu"], out=buf) == 0
+    assert "INFO: bjacobi pc" in buf.getvalue()
+    assert "INFO: solve - converged" in buf.getvalue()
 
 
 def test_cli_cuda_without_card_raises():
