@@ -75,6 +75,38 @@ with a non-zero exit code and no result line:
               with its plain version by CUDA events, beside its bound
               from the bytes and operations.
 
+11. api     — the library entry point (api.make_batch, geneo_setup,
+              geneo_solve: the PCGenEOSetup twin) on the JAX package's
+              tests/test_api.py case, a hand-built two-domain 1-D Poisson
+              problem, with -dls1_type inverse_pallas (K1) under CG and
+              SORAS,2 with intersections under GMRES, on cpu and cuda:
+              equal iterations and reasons, x = 1..n; counts the K1/K2
+              launches of the cuda runs.
+12. chk-dbg — the CLI on laplacian 6x6 with -geneo_chk and -geneo_dbg
+              log,2, and with --debug bin, on cpu and cuda in two scratch
+              directories: the same file set, each PETSc binary reads
+              back (A x = b on the binary dumps, X binary = X text).
+13. elastic-parity — the elastic backend (solve_elastic, float64, host
+              refinement route) at size 6, kappa 1e3 minmax, 2x2x1 boxes,
+              overlap 1: ASM,1 and SORAS,2 on the dense route, ASM,E1 on
+              the LOBPCG route from the JAX package's start block (its
+              float64 draw rebuilt without JAX); raw and real dim_e,
+              Nicolaides, pruned columns, outer and inner iterations on
+              the card equal to the JAX package's on the CPU (constants
+              below) and to the port's own cpu run; true residual <= 1e-8.
+14. elastic — the 10,535,424-DOF Q1 elasticity case of the JAX package's
+              bench (bench.py:491-545): elastic_grid(152, kappa_max=1e4,
+              interp="minmax", spring=1e4), 4x4x4 boxes, overlap 2,
+              ASM,E1 with LOBPCG (60 iterations, cut 8), level-1 PCG rtol
+              0.05 at most 40 iterations, float32 flexible CG inside
+              float64 refinement to a true 1e-8 (the setup and the global
+              operator in float64: in float32 the case does not
+              converge, PERF.md).  Nothing is cut.  Prints
+              dim_e, Nicolaides, inner/outer iterations, the true
+              residual (and again on the host), max |x - x_true| / n, the
+              phase seconds and the peak device memory; passes only if it
+              converges to <= 1e-8.  K1 and K2 are not on this path.
+
 It then prints one JSON line with every kernel's launches (the sum over
 the phases that drive a main path, and each phase's count), and its
 error, path, times and bound at the slice's shape and, under "shapes",
@@ -160,6 +192,49 @@ STRUCTURED_DOF = 10077696
 # the JAX package's record of this case on a TPU v5e (BENCH_r05.json):
 # a reference point, not a target
 JAX_TPU_RECORD = "dim_e 113, 140 inner / 3 outer iterations, true_res 1.33e-9"
+
+# api: the JAX package's tests/test_api.py problem, x = 1..n
+API_N, API_OVERLAP = 12, 2
+# chk-dbg: one laplacian case with the check and level-2 dumps, one with
+# the CLI's binary dumps
+CHK_DBG_ARGS = {
+    "chk+dbg": ["--inpLibA", "laplacian", "--inpLibArg", "--size#6#--dim#2",
+                "--nbPart", "3", "-pc_type", "geneo", "-geneo_lvl", "RAS,1",
+                "-geneo_chk", "log", "-geneo_dbg", "log,2"],
+    "debug bin": ["--inpLibA", "laplacian", "--inpLibArg",
+                  "--size#6#--dim#2", "--nbPart", "2", "-pc_type", "geneo",
+                  "-geneo_lvl", "ASM,1", "--debug", "bin"],
+}
+# elastic-parity: the JAX package's values on the CPU (float64), from
+#   python -c "import jax; jax.config.update('jax_enable_x64', True)
+#   import jax.numpy as jnp
+#   from geneo4petsc_tpu.config import GenEOOptions
+#   from geneo4petsc_tpu.structured.elastic import elastic_grid, solve_elastic
+#   for lvl, eig in (('ASM,1', 'eigh'), ('SORAS,2', 'eigh'),
+#                    ('ASM,E1', 'lobpcg')):
+#       o = GenEOOptions(); o.lvl1, o.lvl2 = lvl.split(','); o.els2.type = eig
+#       o.dls1.rtol, o.dls1.max_it = 1e-11, 500
+#       r = solve_elastic(elastic_grid(6, kappa_max=1e3, interp='minmax'),
+#                         (2, 2, 1), 1, o, tol=1e-8, dtype=jnp.float64)
+#       print(lvl, eig, r.refined.outer_its, r.refined.inner_its,
+#             list(r.stats.raw_dim_e), list(r.stats.real_dim_e),
+#             list(r.stats.nicolaides), r.stats.e_pruned, r.true_res)"
+# run from the repository root with JAX on the CPU.
+ELASTIC_PARITY_GRID = dict(size=6, kappa_max=1e3, interp="minmax")
+ELASTIC_PARITY_DOMS, ELASTIC_PARITY_OVERLAP = (2, 2, 1), 1
+ELASTIC_PARITY_JAX = {
+    ("ASM,1", "eigh"): dict(outer=3, inner=17, raw_dim_e=[6] * 4,
+                            real_dim_e=[6] * 4, nicolaides=[0] * 4,
+                            e_pruned=0, true_res=3.105684778819506e-09),
+    ("SORAS,2", "eigh"): dict(outer=2, inner=15, raw_dim_e=[72] * 4,
+                              real_dim_e=[72] * 4, nicolaides=[0] * 4,
+                              e_pruned=0, true_res=7.555447484969153e-09),
+    ("ASM,E1", "lobpcg"): dict(outer=2, inner=10, raw_dim_e=[6] * 4,
+                               real_dim_e=[6] * 4, nicolaides=[0] * 4,
+                               e_pruned=0, true_res=6.1669219492459345e-09),
+}
+ELASTIC_SIZE, ELASTIC_DOMS, ELASTIC_OVERLAP = 152, (4, 4, 4), 2
+ELASTIC_DOF = 10535424          # 3 * 152^3
 
 LARGE_SIZE, LARGE_GRID = 512, 32   # bench.py:901-904, mode "large"
 LARGE_CUT = 4
@@ -830,6 +905,307 @@ def phase_generic_family() -> tuple[dict, list]:
     return launches, shapes
 
 
+def _two_domain_poisson(n: int, overlap: int):
+    """The JAX package's tests/test_api.py problem: 1-D Poisson (plus
+    0.01 I) split into two overlapping domains, with PRE-WEIGHTED
+    Neumann blocks (an entry both domains hold counts half in each)."""
+    import scipy.sparse as sp
+
+    a = sp.diags([[-1.0] * (n - 1), [2.0] * n, [-1.0] * (n - 1)],
+                 [-1, 0, 1]).tocsr() + sp.eye(n) * 0.01
+    half = n // 2
+    g0, g1 = np.arange(0, half + overlap), np.arange(half - overlap, n)
+    shared = np.intersect1d(g0, g1)
+    mult = np.ones(n)
+    mult[shared] = 2.0
+    dense = a.toarray()
+
+    def neu(g):
+        w = dense[np.ix_(g, g)].copy()
+        both = np.isin(g, shared)
+        w[np.ix_(both, both)] /= 2.0
+        return w
+
+    inter = [[np.zeros(0, np.int64), np.searchsorted(g0, shared)],
+             [np.searchsorted(g1, shared), np.zeros(0, np.int64)]]
+    return a, [g0, g1], [neu(g0), neu(g1)], [mult[g0], mult[g1]], inter
+
+
+def phase_api() -> tuple[dict, list]:
+    """The library entry point on cpu and cuda (see the docstring);
+    returns the K1/K2 launches of the cuda runs and their batch shapes."""
+    from geneo4petsc_tpu_torch import api
+    from geneo4petsc_tpu_torch.config import GenEOOptions, KSPOptions
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+
+    n = API_N
+    a, gids, blocks, mults, inter = _two_domain_poisson(n, API_OVERLAP)
+    x_true = np.arange(1.0, n + 1)
+    b = a @ x_true
+    cases = [("ASM,1 inverse_pallas cg", "ASM,1", "inverse_pallas", "cg",
+              None),
+             ("SORAS,2 intersections gmres", "SORAS,2", "cholesky", "gmres",
+              inter)]
+    launches = {"fused_local_solve": 0, "block_matvec": 0}
+    shapes = []
+    for label, lvl, dls1, ksp_type, its in cases:
+        got = {}
+        for dev in ("cpu", "cuda"):
+            lk.fused_local_solve.launches = 0
+            lk.block_matvec.launches = 0
+            batch = api.make_batch(n, gids, blocks, mults, device=dev)
+            opts = GenEOOptions()
+            opts.lvl1, opts.lvl2 = lvl.split(",")
+            opts.dls1.type = dls1
+            pc, st = api.geneo_setup(batch, opts, b=b, intersections=its)
+            res = api.geneo_solve(batch, b, pc,
+                                  KSPOptions(type=ksp_type, rtol=1e-10))
+            x = res.x.cpu().numpy()
+            got[dev] = (res.its, res.reason, int(st.real_dim_e.sum()),
+                        float(np.abs(x - x_true).max()))
+            if dev == "cuda":
+                check(batch.a_neu.device.type == "cuda" and
+                      res.x.device.type == "cuda", f"api {label}: the "
+                      "solve did not run on the card")
+                case = {k: getattr(lk, k).launches for k in launches}
+                for k in launches:
+                    launches[k] += case[k]
+                shapes.append(("api", batch.n_dom, batch.n_max,
+                               str(batch.dtype)[6:], case))
+        print(f"[api] {label}: cpu {got['cpu'][0]} its reason "
+              f"{got['cpu'][1]}, cuda {got['cuda'][0]} its reason "
+              f"{got['cuda'][1]}, dim_e {got['cuda'][2]}, max |x - x_true| "
+              f"{got['cuda'][3]:.2e}; cuda launches {case}", flush=True)
+        check(got["cpu"][:3] == got["cuda"][:3],
+              f"api {label}: cpu {got['cpu']} != cuda {got['cuda']}")
+        check(got["cuda"][1] > 0 and got["cuda"][3] <= 1e-5,
+              f"api {label}: not converged to x = 1..n: {got['cuda']}")
+        check(case["block_matvec"] >= got["cuda"][0],
+              f"api {label}: K2 launched {case['block_matvec']} times")
+        if dls1 == "inverse_pallas":
+            check(case["fused_local_solve"] >= got["cuda"][0],
+                  f"api {label}: K1 launched {case['fused_local_solve']} "
+                  "times")
+    return launches, shapes
+
+
+def _read_back(path: str):
+    """A PETSc binary dump as an array (Vec) or a CSR matrix (Mat)."""
+    from geneo4petsc_tpu_torch.utils import petsc_format as pf
+
+    with open(path, "rb") as f:
+        classid = int(np.fromfile(f, ">i4", 1)[0])
+    if classid == pf.VEC_FILE_CLASSID:
+        return pf.read_vec_bin(path)
+    check(classid == pf.MAT_FILE_CLASSID, f"{path}: classid {classid}")
+    return pf.read_mat_bin(path)
+
+
+def phase_chk_dbg() -> tuple[dict, list]:
+    """-geneo_chk, -geneo_dbg log,2 and --debug bin on cpu and cuda, each
+    run in a scratch directory of its own (see the docstring)."""
+    import tempfile
+
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+
+    launches = {"fused_local_solve": 0, "block_matvec": 0}
+    shapes = []
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, args in CHK_DBG_ARGS.items():
+            files = {}
+            for dev in ("cpu", "cuda"):
+                work = os.path.join(tmp, f"{label.replace(' ', '_')}-{dev}")
+                os.makedirs(work)
+                os.chdir(work)
+                lk.fused_local_solve.launches = 0
+                lk.block_matvec.launches = 0
+                try:
+                    _, info, out = _run_cli_keep(args + ["--device", dev])
+                finally:
+                    os.chdir(here)
+                files[dev] = sorted(os.listdir(work))
+                check(info["status"] == "converged",
+                      f"chk-dbg {label} {dev}: {info}")
+                if dev == "cuda":
+                    case = {k: getattr(lk, k).launches for k in launches}
+                    for k in launches:
+                        launches[k] += case[k]
+                    batch = out.assembled.batch
+                    shapes.append(("chk-dbg", batch.n_dom, batch.n_max,
+                                   str(batch.dtype)[6:], case))
+                    bins = {f: _read_back(os.path.join(work, f))
+                            for f in files[dev] if f.endswith(".bin")}
+                    if "debug.output.X.bin" in bins:
+                        x = bins["debug.output.X.bin"]
+                        a = bins["debug.input.A.bin"]
+                        b = bins["debug.input.B.bin"]
+                        xt = np.loadtxt(os.path.join(work,
+                                                     "debug.output.X.log"))
+                        res = np.linalg.norm(a @ x - b) / np.linalg.norm(b)
+                        check(res <= 1e-4 and np.allclose(x, xt, rtol=1e-10),
+                              f"chk-dbg {label}: binary dumps do not read "
+                              f"back (|Ax-b|/|b| {res:.2e})")
+            print(f"[chk-dbg] {label}: {len(files['cuda'])} files on cuda, "
+                  f"{len(files['cpu'])} on cpu, equal sets "
+                  f"{files['cuda'] == files['cpu']}; binaries read back: "
+                  f"{[f for f in files['cuda'] if f.endswith('.bin')]}; "
+                  f"cuda launches {case}", flush=True)
+            check(files["cuda"] == files["cpu"],
+                  f"chk-dbg {label}: cpu files {files['cpu']} != cuda "
+                  f"{files['cuda']}")
+            check(len(files["cuda"]) >= 5, f"chk-dbg {label}: too few files")
+    return launches, shapes
+
+
+def _elastic_parity_opts(lvl: str, eig: str):
+    from geneo4petsc_tpu_torch.config import GenEOOptions
+
+    o = GenEOOptions()
+    o.lvl1, o.lvl2 = lvl.split(",")
+    o.els2.type = eig
+    o.dls1.rtol, o.dls1.max_it = 1e-11, 500
+    return o
+
+
+def phase_elastic_parity() -> None:
+    import torch
+
+    from geneo4petsc_tpu_torch.perf.lobpcg_start import jax_start
+    from geneo4petsc_tpu_torch.structured.elastic import (elastic_grid,
+                                                          solve_elastic)
+
+    g = elastic_grid(**ELASTIC_PARITY_GRID)
+    for (lvl, eig), want in ELASTIC_PARITY_JAX.items():
+        got = {}
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            out = solve_elastic(
+                g, ELASTIC_PARITY_DOMS, ELASTIC_PARITY_OVERLAP,
+                _elastic_parity_opts(lvl, eig), tol=1e-8,
+                dtype=torch.float64, device=dev, device_refine=False,
+                lobpcg_start=jax_start)
+            st = out.stats
+            got[dev] = {
+                "outer": out.refined.outer_its,
+                "inner": out.refined.inner_its,
+                "raw_dim_e": [int(v) for v in st.raw_dim_e],
+                "real_dim_e": [int(v) for v in st.real_dim_e],
+                "nicolaides": [int(v) for v in st.nicolaides],
+                "e_pruned": int(st.e_pruned), "true_res": out.true_res,
+                "s": time.perf_counter() - t0}
+            if dev == "cuda":
+                check(out.pc.z.device.type == "cuda",
+                      f"elastic-parity {lvl}: the coarse basis is not on "
+                      "the card")
+        c = got["cuda"]
+        print(f"[elastic-parity] {lvl} ({eig}): cuda {c['outer']} outer / "
+              f"{c['inner']} inner, raw dim_e {c['raw_dim_e']}, real "
+              f"{c['real_dim_e']}, nicolaides {sum(c['nicolaides'])}, "
+              f"pruned {c['e_pruned']}, true_res {c['true_res']:.3e} "
+              f"({c['s']:.2f} s); cpu {got['cpu']['outer']} / "
+              f"{got['cpu']['inner']} ({got['cpu']['s']:.2f} s); JAX on the "
+              f"CPU {want['outer']} / {want['inner']}, real "
+              f"{want['real_dim_e']}, true_res {want['true_res']:.3e}",
+              flush=True)
+        keys = ("outer", "inner", "raw_dim_e", "nicolaides", "e_pruned")
+        for dev in ("cuda", "cpu"):
+            r = got[dev]
+            check({k: r[k] for k in keys} == {k: want[k] for k in keys},
+                  f"elastic-parity {lvl} {dev}: {r} != JAX {want}")
+            # which column of an exactly dependent set the prune drops is
+            # rounding: the per-domain split is held where nothing is
+            # pruned, the total always
+            check(sum(r["real_dim_e"]) == sum(want["real_dim_e"]) and (
+                want["e_pruned"] or r["real_dim_e"] == want["real_dim_e"]),
+                f"elastic-parity {lvl} {dev}: real dim_e {r['real_dim_e']}"
+                f" != JAX {want['real_dim_e']}")
+            check(r["true_res"] <= 1e-8,
+                  f"elastic-parity {lvl} {dev}: true_res {r['true_res']}")
+
+
+def phase_elastic() -> dict:
+    """The 10.5M-DOF elasticity case (see the docstring)."""
+    import torch
+
+    from geneo4petsc_tpu_torch.config import GenEOOptions
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.structured.elastic import (elastic_grid,
+                                                          solve_elastic)
+    from geneo4petsc_tpu_torch.utils.timers import Timers
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lk.fused_local_solve.launches = 0
+    lk.block_matvec.launches = 0
+    t0 = time.perf_counter()
+    g = elastic_grid(ELASTIC_SIZE, kappa_max=1e4, interp="minmax",
+                     spring=1e4)
+    t_gen = time.perf_counter() - t0
+    opts = GenEOOptions()
+    opts.lvl1, opts.lvl2 = "ASM", "E1"
+    opts.els2.type, opts.els2.max_it, opts.cut = "lobpcg", 60, 8
+    opts.dls1.rtol, opts.dls1.max_it = 0.05, 40
+    timers = Timers()
+    t0 = time.perf_counter()
+    # float32 inner iterations inside float64 refinement; the setup and
+    # the global operator in float64 (solve_elastic's defaults on a card)
+    out = solve_elastic(g, ELASTIC_DOMS, ELASTIC_OVERLAP, opts, tol=1e-8,
+                        timers=timers, device="cuda", dtype=torch.float32,
+                        setup_dtype=torch.float64)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"fused_local_solve": lk.fused_local_solve.launches,
+                "block_matvec": lk.block_matvec.launches}
+    n = g.n_dof
+    x = np.asarray(out.x, np.float64)
+    err = float(np.max(np.abs(x - np.arange(1.0, n + 1)))) / n
+    t0 = time.perf_counter()
+    host_res = float(np.linalg.norm(out.b - g.matvec(x))
+                     / np.linalg.norm(out.b))
+    t_host = time.perf_counter() - t0
+    st, tm = out.stats, timers.get
+    info = {"n_dof": n, "dim_e": int(st.real_dim_e.sum()),
+            "nicolaides": int(st.nicolaides.sum()),
+            "e_pruned": int(st.e_pruned),
+            "inner": out.refined.inner_its, "outer": out.refined.outer_its,
+            "true_res": out.true_res, "host_res": host_res,
+            "err_max_over_n": err, "peak_gb": peak_gb, "wall_s": wall,
+            "generator_s": t_gen, "createA_s": tm("createA"),
+            "l1_s": tm("l1_minv"), "lobpcg_s": tm("l2_eig"),
+            "z_s": tm("l2_z"), "e_s": tm("l2_e"), "setup_s": tm("setup"),
+            "solve_s": tm("solve"),
+            "lobpcg_res_max": float(st.lobpcg_res.max())}
+    print(f"[elastic] {n} DOF ({ELASTIC_SIZE}^3 nodes), 4x4x4 boxes of "
+          f"{out.pc.local_shape} nodes, overlap {ELASTIC_OVERLAP}: dim_e "
+          f"{info['dim_e']} (per domain {int(st.real_dim_e.min())}-"
+          f"{int(st.real_dim_e.max())}, nicolaides {info['nicolaides']}, "
+          f"pruned {info['e_pruned']}), {info['inner']} inner / "
+          f"{info['outer']} outer iterations, true_res {out.true_res:.3e} "
+          f"(host float64 recheck {host_res:.3e} in {t_host:.1f} s), max "
+          f"|x - x_true| / n {err:.3e}, kept LOBPCG residual max "
+          f"{info['lobpcg_res_max']:.3e}", flush=True)
+    print(f"[elastic] phases: generator {t_gen:.3f} s, createA "
+          f"{tm('createA'):.3f} s, L1 {tm('l1_minv'):.3f} s, LOBPCG "
+          f"{tm('l2_eig'):.3f} s, Z {tm('l2_z'):.3f} s, E {tm('l2_e'):.3f} "
+          f"s (setup {tm('setup'):.3f} s), solve {tm('solve'):.3f} s; "
+          f"library wall {wall:.2f} s, peak device memory {peak_gb:.2f} GB, "
+          f"refinement history {out.refined.history}", flush=True)
+    check(out.converged and out.true_res <= 1e-8 and host_res <= 1e-8,
+          f"elastic: not converged to 1e-8 (true_res {out.true_res}, host "
+          f"{host_res})")
+    check(bool(np.isfinite(x).all()), "elastic: non-finite solution")
+    check(out.pc.z is not None and out.pc.z.device.type == "cuda"
+          and out.pc.z.dtype == torch.float32
+          and out.pc.gop.k0.dtype == torch.float64,
+          "elastic: the float32 preconditioner (float64 operator) did not "
+          "live on the card")
+    check(launches == {"fused_local_solve": 0, "block_matvec": 0},
+          f"elastic: K1/K2 launched on the elastic path: {launches}")
+    check(peak_gb >= 1.0, f"elastic: peak device memory {peak_gb:.2f} GB")
+    return info
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -859,8 +1235,13 @@ def main() -> int:
     large = phase_large(slice_info)
     by_phase["large"] = large["launches"]
     by_phase["generic-family"], family_shapes = phase_generic_family()
+    by_phase["api"], api_shapes = phase_api()
+    by_phase["chk-dbg"], chk_shapes = phase_chk_dbg()
+    phase_elastic_parity()
+    phase_elastic()
     at_shapes = phase_path_shapes([slice_shape, large["shape"],
-                                   *family_shapes])
+                                   *family_shapes, *api_shapes,
+                                   *chk_shapes])
 
     sources = {"fused_local_solve": ("geneo4petsc_tpu_torch/csrc/"
                                      "fused_local_solve.cu",
@@ -868,7 +1249,8 @@ def main() -> int:
                "block_matvec": ("geneo4petsc_tpu_torch/csrc/block_matvec.cu",
                                 "geneo4petsc_tpu/ops/pallas_kernels.py:125")}
     # launches: the sum over the phases that drive a main path with K1/K2
-    # (slice, large, generic-family; the structured path has none); the
+    # (slice, large, generic-family, api, chk-dbg; the structured and
+    # elastic paths have none); the
     # times and error at the slice's shape, and in "shapes" at every
     # shape a main path gave the kernel
     rows = []

@@ -3,14 +3,15 @@ src/geneo4PETSc.cpp:1396-1633) on the PyTorch port.
 
 Same flag surface as the JAX package's CLI:
   --inpFileA F --inpEps E --inpLibA L A --inpFileB F --metisDual
-  --metisNodal --addOverlap L --verbose V --timing --shortRes --cmdLine
-  --help --nbPart N
+  --metisNodal --addOverlap L --debug F --verbose V --timing --shortRes
+  --cmdLine --help --nbPart N
 plus PETSc-style options consumed from the remaining argv:
   -pc_type {geneo,bjacobi,mg,none} -ksp_type {gmres,cg} -ksp_rtol
   -ksp_atol -ksp_divtol -ksp_max_it -ksp_gmres_restart -options_left
   -pc_mg_cycle_type -pc_mg_smoothdown -pc_mg_smoothup
   -geneo_lvl L1,L2 -geneo_optim -geneo_tau -geneo_gamma -geneo_cst
   -geneo_cut -geneo_no_syl -geneo_offload -dls1_type -els2_type
+  -geneo_dbg F,D -geneo_chk F
 and one flag of its own:
   --device cpu|cuda   (default cuda; a cuda run without a card raises)
 
@@ -50,8 +51,10 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
   --addOverlap L, add L layers of overlap at each domain border
   --nbPart N,     number of subdomains (the reference's mpirun -n N)
   --structured GX,GY,GZ, structured scale path on a GX x GY x GZ box
-                  decomposition (--inpLibA laplacian|heat, -pc_type geneo)
+                  decomposition (--inpLibA laplacian|heat|elasticity,
+                  -pc_type geneo)
   --device D,     cuda (default) or cpu
+  --debug F,      create debug files (F = log, bin or mat)
   --verbose V,    V=1: dump X; V=2: dump A, B and X
   --timing,       print timing
   --shortRes,     print short result status (stable golden-test output)
@@ -67,16 +70,14 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
   -dls1_type T         cholesky | lu | inverse | inverse_pallas
   -els2_type T         eigh | lobpcg
   -els2_eps_max_it N  -els2_eps_tol T
+  -geneo_dbg F,D       debug files (F = log|bin|mat) at level D (1: timing,
+                       2: setup artifacts and one apply)
+  -geneo_chk F         check SPD, PoU, rank of Z and the eigensolver
 """
 
 # options of the JAX CLI whose code is not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "--structured --inpLibA elasticity": "Queue 1, item 18 (elastic "
-                                         "backend)",
     "--nbDevices": "Queue 1, item 19 (multi-GPU)",
-    "--debug": "Queue 1, item 11 (debug dumps)",
-    "-geneo_dbg": "Queue 1, item 11 (debug dumps)",
-    "-geneo_chk": "Queue 1, item 11 (setup checks)",
 }
 
 
@@ -94,6 +95,9 @@ def parse_args(argv: list[str]):
     ksp = KSPOptions(rtol=1e-5, atol=1e-50, dtol=1e4, max_it=10000)
     gen = GenEOOptions()
     pc_type = None
+    check = False
+    dbg_level = 0
+    dbg_fmt = "log"
     user_cmd = "geneo4petsc_tpu_torch " + " ".join(argv)
 
     def need(i, name):
@@ -106,8 +110,14 @@ def parse_args(argv: list[str]):
         a = argv[i]
         if a == "--help":
             raise CLIError("__help__")
-        elif a in ("--nbDevices", "--debug", "-geneo_dbg", "-geneo_chk"):
+        elif a == "--nbDevices":
             raise _not_ported(a)
+        elif a == "--debug":
+            drv.debug = True
+            i += 1
+            f = need(i, a)
+            drv.debug_bin = f == "bin"
+            drv.debug_mat = f == "mat"
         elif a == "--structured":
             i += 1; drv.structured = need(i, a)
         elif a == "--inpFileA":
@@ -220,6 +230,18 @@ def parse_args(argv: list[str]):
                         pass
                 if is_value:
                     i += 1
+        elif a == "-geneo_dbg":
+            i += 1
+            parts = need(i, a).split(",")
+            if len(parts) != 2:
+                raise CLIError("Error: invalid option -geneo_dbg")
+            dbg_fmt = parts[0]
+            if dbg_fmt not in ("log", "bin", "mat"):
+                raise CLIError("Error: invalid option -geneo_dbg")
+            dbg_level = int(parts[1])
+        elif a == "-geneo_chk":
+            i += 1; need(i, a)
+            check = True
         elif a == "-options_left":
             # PETSc accepts both bare '-options_left' and '-options_left no'
             if i + 1 < len(argv) and not argv[i + 1].startswith("-"):
@@ -227,8 +249,6 @@ def parse_args(argv: list[str]):
 
         i += 1
 
-    if drv.structured and drv.inp_lib_a == "elasticity":
-        raise _not_ported("--structured --inpLibA elasticity")
     if pc_type is None:
         pc_type = "bjacobi"  # PETSc parallel default PC
     if pc_type not in ("geneo", "bjacobi", "mg", "none"):
@@ -237,13 +257,14 @@ def parse_args(argv: list[str]):
         raise CLIError("Error: no input")
     if drv.inp_file_a and drv.inp_lib_a:
         raise CLIError("Error: several input")
-    return drv, ksp, gen, pc_type, user_cmd
+    return drv, ksp, gen, pc_type, check, dbg_level, dbg_fmt, user_cmd
 
 
 def run(argv: list[str], out=sys.stdout) -> int:
     t_total = time.perf_counter()
     try:
-        drv, ksp, gen, pc_type, user_cmd = parse_args(argv)
+        drv, ksp, gen, pc_type, check, dbg_level, dbg_fmt, user_cmd = \
+            parse_args(argv)
     except CLIError as e:
         if str(e) == "__help__":
             print(USAGE, file=sys.stderr)
@@ -272,6 +293,7 @@ def run(argv: list[str], out=sys.stdout) -> int:
     from .assembly.assemble import assemble
     from .partition.decompose import partition_and_decompose
     from .solver import build_rhs, solve_assembled
+    from .utils.check import CheckError, run_checks
 
     timers = Timers()
 
@@ -307,13 +329,46 @@ def run(argv: list[str], out=sys.stdout) -> int:
     if drv.verbose >= 2:
         print(pf.format_vec(b, drv.n_parts, "B"), file=out)
 
+    if drv.debug:
+        _debug_driver_files(ap, b, drv)
+
     # --- solve (L4/L5) ---
     res = solve_assembled(ap, pc_type=pc_type, geneo=gen, ksp=ksp, b=b,
                           driver=drv, timers=timers)
 
+    if check:
+        try:
+            run_checks(ap, res.pc, pc_type, stats=res.stats,
+                       eps_tol=gen.els2.rtol)
+        except CheckError as e:
+            # the reference SETERRABORTs after dumping state; the CLI
+            # analogue is a printed error and a nonzero exit
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 2
+
+    if dbg_level >= 1 and pc_type == "geneo":
+        from .utils import debug as dbg
+        dbg.dump_timing(timers)
+        if dbg_level >= 2:
+            dbg.dump_setup(res.pc, res.stats, decomp=decomp, fmt=dbg_fmt,
+                           tau=gen.tau)
+            # one apply on B stands in for the per-apply dumps
+            dbg.dump_apply(res.pc, b, fmt=dbg_fmt)
+
     if drv.verbose >= 1:
         print(pf.format_vec(res.x, drv.n_parts, "X").replace(
             "The vector X is:", "The solution X is:"), file=out)
+
+    if drv.debug:
+        if drv.debug_bin:
+            # PetscViewerBinary (VecLoad-compatible), --debug bin
+            pf.write_vec_bin("debug.output.X.bin", res.x)
+        np.savetxt("debug.output.X.log", res.x, fmt="%.12g")
+        h = res.result.history.numpy()
+        h = h[~np.isnan(h)]
+        with open("debug.apply.residual.log", "w") as f:
+            for it, r in enumerate(h):
+                f.write(f"Iteration {it}: residual {r:g}\n")
 
     _print_info(res, drv, ksp, gen, pc_type, out)
     _print_results(res, drv, out)
@@ -327,19 +382,24 @@ def run(argv: list[str], out=sys.stdout) -> int:
 
 def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
                     user_cmd) -> int:
-    """--structured GX,GY,GZ: drive the structured scale backend
+    """--structured GX,GY,GZ: drive the structured scale backends
     (structured/) with the standard INFO/TIME protocol.
 
     Tensor-grid generators: laplacian (separable kappa -> exact FDM local
-    solves) and heat (mass term -> block-tridiagonal or inexact local
-    solvers, structured/solvers.py)."""
+    solves), heat (mass term -> block-tridiagonal or inexact local
+    solvers, structured/solvers.py) and elasticity (the 3-D Q1 vector
+    backend, structured/elastic.py: inexact local solves under flexible
+    CG, float32 inside float64 refinement on a card, float64 on the
+    CPU)."""
     from .models import _grid
     from .structured.grid import heat_grid, laplacian_grid
     from .structured.solve import solve_structured
 
-    if pc_type != "geneo" or drv.inp_lib_a not in ("laplacian", "heat"):
-        print("Error: --structured requires --inpLibA laplacian|heat and "
-              "-pc_type geneo", file=sys.stderr)
+    if pc_type != "geneo" or drv.inp_lib_a not in ("laplacian", "heat",
+                                                   "elasticity"):
+        print("Error: --structured requires --inpLibA "
+              "laplacian|heat|elasticity and -pc_type geneo",
+              file=sys.stderr)
         return 1
     try:
         dom_grid = tuple(int(t) for t in drv.structured.split(","))
@@ -352,33 +412,58 @@ def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
 
     opt = _grid.parse_args(drv.inp_lib_arg.replace("#", " "), {
         "size": int, "weakScaling": int, "dim": int, "inpEps": float,
-        "kappa": tuple, "lbd": float, "dt": float, "verbose": bool,
-        "debug": bool,
+        "kappa": tuple, "lbd": float, "dt": float, "nu": float,
+        "spring": float, "verbose": bool, "debug": bool,
     })
     kappa_max, interp = opt.get("kappa", (1.0, ""))
     overlap = max(drv.add_overlap, 1)
     timers = Timers()
-    kw = dict(dim=opt.get("dim", 3), kappa_max=kappa_max, interp=interp,
-              inp_eps=opt.get("inpEps", drv.inp_eps),
-              weak_scaling=opt.get("weakScaling", 1))
-    if drv.inp_lib_a == "heat":
-        grid = heat_grid(opt.get("size", 4), lbd=opt.get("lbd", 1.0),
-                         dt=opt.get("dt", 0.1), **kw)
+    if drv.inp_lib_a == "elasticity":
+        if ksp.type != "cg":
+            print("Error: --structured elasticity supports -ksp_type cg",
+                  file=sys.stderr)
+            return 1
+        from .structured.elastic import elastic_grid, solve_elastic
+        grid = elastic_grid(opt.get("size", 4), kappa_max=kappa_max,
+                            interp=interp, nu=opt.get("nu", 0.3),
+                            spring=opt.get("spring", 1.0))
+        try:
+            res = solve_elastic(grid, dom_grid, overlap, opts=gen,
+                                tol=ksp.rtol, timers=timers, device=device,
+                                checkpoint_dir=_checkpoint_dir())
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+        nx, ny, nz = grid.shape
+        n_elems = (nx - 1) * (ny - 1) * (nz - 1) + 3 * nx * ny
+        nnz = 9 * (3 * nx - 2) * (3 * ny - 2) * (3 * nz - 2)
+        n_dof_line = grid.n_dof
     else:
-        grid = laplacian_grid(opt.get("size", 4), **kw)
-    try:
-        res = solve_structured(grid, dom_grid, overlap, geneo=gen, ksp=ksp,
-                               tol=ksp.rtol, timers=timers, device=device)
-    except ValueError as e:
-        print(f"Error: {e}", file=sys.stderr)
-        return 1
-    n_edges = sum((grid.shape[a] - 1) * (grid.n_nodes // max(grid.shape[a], 1))
-                  for a in range(grid.dim))
-    n_elems = n_edges + grid.n_nodes // grid.shape[grid.dim - 1]
-    nnz = grid.n_nodes + 2 * n_edges
+        kw = dict(dim=opt.get("dim", 3), kappa_max=kappa_max,
+                  interp=interp, inp_eps=opt.get("inpEps", drv.inp_eps),
+                  weak_scaling=opt.get("weakScaling", 1))
+        if drv.inp_lib_a == "heat":
+            grid = heat_grid(opt.get("size", 4), lbd=opt.get("lbd", 1.0),
+                             dt=opt.get("dt", 0.1), **kw)
+        else:
+            grid = laplacian_grid(opt.get("size", 4), **kw)
+        try:
+            res = solve_structured(grid, dom_grid, overlap, geneo=gen,
+                                   ksp=ksp, tol=ksp.rtol, timers=timers,
+                                   device=device,
+                                   checkpoint_dir=_checkpoint_dir())
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+        n_edges = sum((grid.shape[a] - 1)
+                      * (grid.n_nodes // max(grid.shape[a], 1))
+                      for a in range(grid.dim))
+        n_elems = n_edges + grid.n_nodes // grid.shape[grid.dim - 1]
+        nnz = grid.n_nodes + 2 * n_edges
+        n_dof_line = grid.n_nodes
 
     mode = f"structured {dom_grid[0]}x{dom_grid[1]}x{dom_grid[2]}"
-    print(f"INFO: nb DOFs {grid.n_nodes}, nb elements {n_elems}, "
+    print(f"INFO: nb DOFs {n_dof_line}, nb elements {n_elems}, "
           f"nnz coefs {nnz}, nb partitions {res.n_dom}, overlap {overlap}, "
           f"{mode}", file=out)
     print(f"INFO: {ksp.type} ksp, eps rel {ksp.rtol:.1e}, "
@@ -426,6 +511,33 @@ def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
     if drv.cmd_line:
         print(f"\nCMD: {user_cmd}", file=out)
     return 0  # the reference returns 0 either way; the result is in the log
+
+
+def _debug_driver_files(ap, b, drv):
+    mask = ap.batch.mask.cpu().numpy()
+    aneu = ap.batch.a_neu.cpu().numpy().astype(np.float64, copy=False)
+    with open("debug.input.A.MatIS.log", "w") as f:
+        blocks = [aneu[p, :int(mask[p].sum()), :int(mask[p].sum())]
+                  for p in range(ap.batch.n_dom)]
+        f.write(pf.format_matis(blocks, drv.n_parts))
+    if drv.debug_mat:
+        # Matlab export (--debug mat; PETSC_VIEWER_ASCII_MATLAB role)
+        with open("debug.input.A.mat", "w") as f:
+            f.write(pf.format_mat_matlab(ap.a_csr.toarray(), "A"))
+        with open("debug.input.B.mat", "w") as f:
+            f.write(pf.format_vec_matlab(b, "B"))
+    if drv.debug_bin:
+        # PetscViewerBinary (MatLoad/VecLoad-compatible), --debug bin
+        pf.write_mat_bin("debug.input.A.bin", ap.a_csr)
+        pf.write_vec_bin("debug.input.B.bin", b)
+    np.savetxt("debug.input.B.log", b, fmt="%.12g")
+
+
+def _checkpoint_dir() -> str | None:
+    """The structured paths' setup cache (GENEO_CHECKPOINT_DIR, the JAX
+    package's switch for it); None when unset."""
+    import os
+    return os.environ.get("GENEO_CHECKPOINT_DIR") or None
 
 
 def _dump_a(ap, drv, out):

@@ -135,6 +135,10 @@ class DriverOptions:
     short_res: bool = False
     cmd_line: bool = False
     n_parts: int = 2  # "mpirun -n" equivalent: number of subdomains
+    # --debug log|bin|mat: the CLI's input and output dump files
+    debug: bool = False
+    debug_bin: bool = False
+    debug_mat: bool = False
     device: str = "cuda"
     structured: str = ""
     # -pc_mg_* options (the reference sweep's MG_OPT,

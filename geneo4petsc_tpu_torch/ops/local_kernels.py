@@ -21,6 +21,9 @@ base pointer and row size are multiples of 16 bytes; and ``"direct"``,
 one warp per four rows loading straight from device memory, for every
 other batch.  ``_stream_plan`` chooses the path and its geometry from the
 shapes, the alignment and the card's limits; the kernels only check it.
+``plan_for`` caches the plan per (shape, dtype, alignment, card), and a
+launch switches the current device only when the batch lives on another
+card: at small batches a call costs mostly its host side.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import functools
 from typing import Iterator, NamedTuple
 
 import torch
+
+from . import _build
 
 _DTYPES = (torch.float64, torch.float32)
 
@@ -115,6 +120,9 @@ def stream_tiles(plan: StreamPlan, n_dom: int, n: int
             yield b, d, r0, min(plan.rows, n - r0)
 
 
+_cached_plan = functools.lru_cache(maxsize=None)(_stream_plan)
+
+
 @functools.cache
 def _device_limits(index: int) -> tuple[int, int]:
     """(number of SMs, most dynamic shared memory of a block) of a card."""
@@ -123,27 +131,30 @@ def _device_limits(index: int) -> tuple[int, int]:
 
 
 def plan_for(mat: torch.Tensor, extra: int = 0) -> StreamPlan:
-    """The plan of a CUDA matrix batch on its own card."""
+    """The plan of a CUDA matrix batch on its own card (cached)."""
     index = mat.device.index
     if index is None:
         index = torch.cuda.current_device()
-    return _stream_plan(mat.shape[0], mat.shape[1], mat.element_size(),
+    return _cached_plan(mat.shape[0], mat.shape[1], mat.element_size(),
                         mat.data_ptr() % 16 == 0, *_device_limits(index),
-                        extra=extra)
+                        extra)
 
 
 def _launch(wrapper, entry: str, mat: torch.Tensor, args: tuple,
             plan: StreamPlan) -> None:
     """Launch ``entry`` of the kernel library on ``mat``'s card and
     stream, count it on ``wrapper`` and raise on a CUDA error."""
-    from ._build import load
-
-    lib = load()
-    with torch.cuda.device(mat.device):
-        stream = torch.cuda.current_stream(mat.device).cuda_stream
-        err = getattr(lib, entry)(
-            mat.data_ptr(), *args, _PATH_CODE[plan.path], plan.rows,
-            plan.stages, plan.grid, plan.threads, plan.smem, stream)
+    fn = getattr(_build.load(), entry)
+    call = (mat.data_ptr(), *args, _PATH_CODE[plan.path], plan.rows,
+            plan.stages, plan.grid, plan.threads, plan.smem)
+    index = mat.device.index
+    if index == torch.cuda.current_device():
+        # the current stream's raw handle (torch.cuda.current_stream()
+        # builds a Stream object: several microseconds a call)
+        err = fn(*call, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(mat.device):
+            err = fn(*call, torch.cuda.current_stream().cuda_stream)
     wrapper.launches += 1
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}: CUDA error {err} "

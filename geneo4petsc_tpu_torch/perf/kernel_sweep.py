@@ -16,9 +16,19 @@ under hand-made plans.
    then K2 on both paths at shapes with small blocks (``--small-only``
    runs just this part).
 
+4. the host side of one K2 call at the small batches of the generic
+   path's main paths ([2, 56, 56], [2, 80, 80], [4, 1080, 1080],
+   [64, 448, 448] float64): microseconds of host time a call for the
+   wrapper's checks, its plan (cached and not), the current stream (as a
+   Stream object and as the raw handle the wrappers take), the device
+   guard (taken only off the current card), the launch, the whole
+   wrapper, and
+   torch.bmm's dispatch, each over many calls without a synchronization.
+
 With ``--parent DIR`` (a checkout of an earlier commit, e.g. made with
-``git archive``) it also builds that commit's kernels and times its K1
-and K2, which took no plan, in turns with this tree's.
+``git archive``) it also times that commit's wrappers (its host code
+launching its kernels) in turns with this tree's, and beside torch.bmm,
+at the main shape and the small batches of step 4.
 
 The list of plans is a measuring tool: the wrappers of
 ops/local_kernels.py always take the plan of ``_stream_plan``.
@@ -39,6 +49,9 @@ from ..ops import local_kernels as lk
 from ..utils.cuda_timing import time_in_turns
 
 MAIN = (1024, 496)
+# the small batches the generic path's main paths give K2 (golden and
+# mg cases of generic-family, its lobpcg cases)
+SMALL_SHAPES = [(2, 56), (2, 80), (4, 1080), (64, 448)]
 CHECK_SHAPES = [((1024, 496), torch.float64), ((3, 37), torch.float64),
                 ((3, 37), torch.float32), ((7, 50), torch.float64),
                 ((5, 66), torch.float32), ((5, 64), torch.float32),
@@ -189,29 +202,84 @@ def small_blocks() -> None:
         del inv, x
 
 
+def _host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls, with no
+    synchronization between them (the card runs behind)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def host_cost() -> None:
+    """The host side of one K2 call, piece by piece (see the docstring)."""
+    for n_dom, n in SMALL_SHAPES:
+        inv, _, _, x = _data(n_dom, n, torch.float64)
+        plan = lk.plan_for(inv)
+
+        def guard():
+            with torch.cuda.device(inv.device):
+                pass
+
+        pieces = {
+            "checks": lambda: lk._check("block_matvec", inv, {"x": x}),
+            "plan": lambda: lk.plan_for(inv),
+            "plan uncached": lambda: lk._stream_plan(
+                n_dom, n, 8, True,
+                *lk._device_limits(torch.cuda.current_device())),
+            "stream object": lambda: torch.cuda.current_stream().cuda_stream,
+            "raw stream": lambda: torch._C._cuda_getCurrentRawStream(
+                inv.device.index),
+            "device guard": guard,
+            "launch": lambda: lk._block_matvec_cuda(inv, x, plan),
+            "wrapper": lambda: lk.block_matvec(inv, x),
+            "torch.bmm": lambda: torch.bmm(inv, x.unsqueeze(-1)),
+        }
+        line = ", ".join(f"{k} {_host_us(f):.2f}" for k, f in pieces.items())
+        print(f"[host] K2 [{n_dom},{n},{n}] float64, host us a call: {line}",
+              flush=True)
+        del inv, x
+
+
 def compare_with_parent(parent_dir: str) -> None:
-    """This tree's K1/K2 (wrappers' plan) in turns with the kernels of
-    the checkout at ``parent_dir``."""
+    """This tree's K1/K2 wrappers in turns with the wrappers (host code
+    and kernels) of the checkout at ``parent_dir``, and K2 beside
+    torch.bmm, at the main shape and the small batches."""
     from .parent_kernels import load
 
-    old_k1, old_k2 = load(parent_dir)
-    n_dom, n = MAIN
-    inv, d, mask, x = _data(n_dom, n, torch.float64)
-    if _rel(old_k2(inv, x), lk.block_matvec_plain(inv, x)) > 1e-12:
-        raise RuntimeError("the parent's K2 disagrees with the plain version")
-    direct = _direct(n_dom, n, 8, lk.DIRECT_THREADS)
-    for name, new_fn, old_fn in (
-            ("K2", lambda: lk.block_matvec(inv, x), lambda: old_k2(inv, x)),
-            ("K1", lambda: lk.fused_local_solve(inv, None, mask, x),
-             lambda: old_k1(inv, None, mask, x)),
-            ("K2 on the direct path",
-             lambda: lk._block_matvec_cuda(inv, x, direct),
-             lambda: old_k2(inv, x))):
-        new_t, old_t = time_in_turns(new_fn, old_fn)
-        print(f"[parent] {name} [{n_dom},{n},{n}] float64: this tree "
-              f"{new_t['ms']:.4f} ms [{new_t['min_ms']:.4f}, "
-              f"{new_t['max_ms']:.4f}], parent {old_t['ms']:.4f} ms "
-              f"[{old_t['min_ms']:.4f}, {old_t['max_ms']:.4f}]", flush=True)
+    old = load(parent_dir)
+    for n_dom, n in [MAIN] + SMALL_SHAPES:
+        inv, d, mask, x = _data(n_dom, n, torch.float64)
+        if _rel(old.block_matvec(inv, x),
+                lk.block_matvec_plain(inv, x)) > 1e-12:
+            raise RuntimeError("the parent's K2 disagrees with the plain "
+                               "version")
+
+        def lib():
+            return torch.bmm(inv, x.unsqueeze(-1))
+
+        for name, new_fn, old_fn in (
+                ("K2", lambda: lk.block_matvec(inv, x),
+                 lambda: old.block_matvec(inv, x)),
+                ("K1", lambda: lk.fused_local_solve(inv, None, mask, x),
+                 lambda: old.fused_local_solve(inv, None, mask, x))):
+            new_t, old_t = time_in_turns(new_fn, old_fn)
+            line = (f"[parent] {name} [{n_dom},{n},{n}] float64: this tree "
+                    f"{new_t['ms']:.4f} ms [{new_t['min_ms']:.4f}, "
+                    f"{new_t['max_ms']:.4f}], parent {old_t['ms']:.4f} ms "
+                    f"[{old_t['min_ms']:.4f}, {old_t['max_ms']:.4f}]")
+            if name == "K2":
+                _, b = time_in_turns(new_fn, lib)
+                line += (f", torch.bmm {b['ms']:.4f} ms [{b['min_ms']:.4f},"
+                         f" {b['max_ms']:.4f}]")
+            print(line, flush=True)
+        del inv, d, mask, x
 
 
 def main(argv=None) -> int:
@@ -237,6 +305,7 @@ def main(argv=None) -> int:
     if not args.check_only:
         sweep()
         small_blocks()
+    host_cost()
     if args.parent:
         compare_with_parent(args.parent)
     return 0

@@ -106,12 +106,33 @@ def jax_normal32(shape, device="cpu") -> torch.Tensor:
             * _erfinv32(u)).reshape(shape)
 
 
+def jax_normal64(shape, device="cpu") -> torch.Tensor:
+    """jax.random.normal(jax.random.PRNGKey(0), shape, jnp.float64),
+    rebuilt with torch: the partitionable Threefry pair gives the 64 bits
+    (b1 << 32 | b2) and the uniform they map to exactly; the inverse
+    error function is torch's float64 one, so the draw agrees with
+    JAX's to 1e-14 relative (the tails, where the two erfinv part)."""
+    n = int(np.prod(shape))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(0, 0, idx >> 32, idx & _M32)
+    # the top 52 of the 64 bits as the mantissa of a float in [1, 2)
+    mant = ((b1 << 20) | (b2 >> 12)) & ((1 << 52) - 1)
+    u = (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
+    lo = torch.tensor(np.nextafter(-1.0, 0.0), dtype=torch.float64,
+                      device=device)
+    u = torch.maximum(lo, u * (1.0 - lo) + lo)
+    return (np.sqrt(2.0) * torch.special.erfinv(u)).reshape(shape)
+
+
 def jax_start(d: int, n: int, k: int, dtype, device="cpu") -> torch.Tensor:
-    """The JAX package's float32 LOBPCG start block (structured/geneo.py
-    draws jax.random.normal(PRNGKey(0), (d, n, k)))."""
-    if dtype != torch.float32:
-        raise ValueError("jax_start rebuilds the float32 draw only")
-    return jax_normal32((d, n, k), device)
+    """The JAX package's LOBPCG start block (structured/geneo.py and
+    structured/elastic.py draw jax.random.normal(PRNGKey(0), (d, n,
+    k))), in float32 or float64."""
+    if dtype == torch.float32:
+        return jax_normal32((d, n, k), device)
+    if dtype == torch.float64:
+        return jax_normal64((d, n, k), device)
+    raise ValueError(f"jax_start: no draw for {dtype}")
 
 
 class _Float32Eigh:

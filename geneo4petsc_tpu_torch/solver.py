@@ -24,6 +24,7 @@ from .partition.decompose import partition_and_decompose
 from .precond.bjacobi import setup_bjacobi
 from .precond.geneo import GenEOStats, setup_geneo
 from .precond.mg import setup_mg
+from .utils.debug import dump_failure
 from .utils.timers import Timers
 
 
@@ -138,6 +139,11 @@ def solve_assembled(assembled: AssembledProblem,
     r = assembled.a_csr @ x_np - b
     bn = np.linalg.norm(b)
     true_res = float(np.linalg.norm(r) / bn) if bn > 0 else float("inf")
+
+    if result.reason < 0:
+        # DIVERGED_*: dump Krylov + PC state even with debugging off
+        # (checkKSPSolve, src/geneo.cpp:1397-1433)
+        dump_failure(result, ksp, pc_name, stats=stats)
 
     return SolveOutput(result=result, x=x_np, b=np.asarray(b), pc_name=pc_name,
                        stats=stats, timers=timers, true_res=true_res,

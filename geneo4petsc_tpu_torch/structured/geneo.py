@@ -287,9 +287,10 @@ def coarse_e(sd: StructuredDecomposition, z: torch.Tensor,
              y_dil: torch.Tensor, counts: np.ndarray) -> np.ndarray:
     """E = Z^T A Z via per-offset window contractions.
 
-    z:     [n_dom, k_max, lz, ly, lx] D-weighted local basis (zero pad)
-    y_dil: [n_dom, k_max, dz, dy, dx] = A z_d on the one-layer-dilated
-           box, in the precision E is assembled in
+    z:     [n_dom, k_max, (c,) lz, ly, lx] D-weighted local basis (zero
+           pad; the optional component axis c of the elastic backend)
+    y_dil: [n_dom, k_max, (c,) dz, dy, dx] = A z_d on the
+           one-layer-dilated box, in the precision E is assembled in
     Returns the REAL (unpadded) dense symmetric E [dim_e, dim_e] (host).
 
     A neighbour offset is a constant shift o_lin of the flat domain index
@@ -308,8 +309,8 @@ def coarse_e(sd: StructuredDecomposition, z: torch.Tensor,
         if hi_v <= lo_v:
             continue
         size = hi_v - lo_v
-        zwin = z[lo_v + o_lin:hi_v + o_lin, :, zwz, zwy, zwx]
-        ywin = y_dil[lo_v:hi_v, :, ywz, ywy, ywx]
+        zwin = z[lo_v + o_lin:hi_v + o_lin, :, ..., zwz, zwy, zwx]
+        ywin = y_dil[lo_v:hi_v, :, ..., ywz, ywy, ywx]
         b = torch.bmm(zwin.to(y_dil.dtype).reshape(size, k_max, -1),
                       ywin.reshape(size, k_max, -1).transpose(1, 2))
         blocks[io, lo_v:hi_v] = b.double().cpu().numpy()

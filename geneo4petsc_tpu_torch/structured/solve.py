@@ -23,6 +23,7 @@ from ..krylov.refine import (RefinedResult, refined_solve,
                              refined_solve_device)
 from ..ops.batched_linalg import require_full_f32
 from ..precond.geneo import GenEOStats
+from ..utils.checkpoint import setup_with_checkpoint
 from ..utils.timers import Timers
 from .decompose import StructuredDecomposition
 from .geneo import StructuredGenEO, setup_structured
@@ -77,14 +78,18 @@ def solve_structured(grid: StructuredGrid, dom_grid, overlap: int,
                      tol: float = 1e-8, dtype=torch.float32,
                      timers: Timers | None = None,
                      device="cuda", device_refine: bool | None = None,
-                     lobpcg_start=None) -> StructuredSolveOutput:
+                     lobpcg_start=None,
+                     checkpoint_dir: str | None = None
+                     ) -> StructuredSolveOutput:
     """Solve the grid's manufactured system (x = 1..n) on ``device``.
 
     device_refine (default: on for a CUDA device, off for the CPU, as
     the JAX package's accelerator rule): keep x/b/r on the device in
     float64 with the device stencil as the truth operator, instead of
     the host route (x on the host, NumPy stencil residuals).
-    ``lobpcg_start``: see setup_structured."""
+    ``lobpcg_start``: see setup_structured.  ``checkpoint_dir``: cache
+    the finished setup there and load it on a warm hit
+    (utils.checkpoint.setup_with_checkpoint)."""
     geneo = geneo or GenEOOptions()
     ksp = ksp or KSPOptions()
     timers = timers or Timers()
@@ -117,9 +122,12 @@ def solve_structured(grid: StructuredGrid, dom_grid, overlap: int,
     timers.add("createA", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    pc, stats = setup_structured(
-        sd, geneo, b=torch.as_tensor(b).to(device, dtype), dtype=dtype,
-        timers=timers, device=device, lobpcg_start=lobpcg_start)
+    pc, stats = setup_with_checkpoint(
+        lambda: setup_structured(
+            sd, geneo, b=torch.as_tensor(b).to(device, dtype), dtype=dtype,
+            timers=timers, device=device, lobpcg_start=lobpcg_start),
+        grid, dom_grid, overlap, geneo, dtype, timers, checkpoint_dir,
+        device)
     sync()
     timers.add("setup", time.perf_counter() - t0)
 

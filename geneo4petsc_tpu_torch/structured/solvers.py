@@ -188,18 +188,23 @@ class PCGSolver:
     operator, all domains (and block columns) advanced in lockstep until
     the worst relative residual reaches ``rtol`` — the inexact-Schwarz
     replacement for MUMPS LU when both FDM and block-tridiag are out
-    (non-separable operators at scale)."""
+    (non-separable operators at scale).
+
+    ``reduce_dims``: the axes of one system (default: the box, so every
+    block column is a system of its own; the elastic backend adds the
+    displacement-component axis, which belongs to the system)."""
 
     st: lo.LocalStencil
     pre: ScaledFDM
     maskf: torch.Tensor
     rtol: float
     max_it: int
+    reduce_dims: tuple = (-3, -2, -1)
 
     def solve(self, x: torch.Tensor) -> torch.Tensor:
         m = lo.lift(self.maskf, x)
         b = x * m
-        dims = (-3, -2, -1)                   # reduce over the box
+        dims = self.reduce_dims
 
         def dots(u, v):
             return (u * v).sum(dim=dims, keepdim=True)

@@ -1,11 +1,12 @@
 """Carry state across from the JAX package.
 
-The JAX package's ``SubdomainBatch``, ``GenEOPreconditioner``,
-``BlockJacobiPreconditioner`` and ``MGPreconditioner`` are handed over as
+The JAX package's ``SubdomainBatch`` (also ``api.make_batch``'s),
+``GenEOPreconditioner``, ``BlockJacobiPreconditioner``,
+``MGPreconditioner`` and the elastic ``ElasticGenEO`` are handed over as
 NumPy arrays (their data leaves) plus their static fields, and rebuilt
 here as the port's objects on a given device, so both packages can apply
-the very same preconditioner.  Only NumPy arrays
-cross: nothing here imports JAX.
+the very same preconditioner.  Only NumPy arrays cross: nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -105,3 +106,67 @@ def mg_from_arrays(d: dict, meta: dict, device) -> MGPreconditioner:
         cycle_type=str(meta["cycle_type"]),
         smooth_down=int(meta["smooth_down"]),
         smooth_up=int(meta["smooth_up"]))
+
+
+def _elastic_op_from(op, device):
+    """A JAX LocalElastic or RobinOp (NumPy leaves) -> the port's."""
+    from ..structured import elastic as el
+
+    def put(a):
+        return torch.tensor(np.asarray(a), dtype=_dtype_of(a), device=device)
+
+    if hasattr(op, "border"):
+        return el.RobinOp(dir_op=_elastic_op_from(op.dir_op, device),
+                          neu_op=_elastic_op_from(op.neu_op, device),
+                          border=put(op.border), optim=put(op.optim))
+    return el.LocalElastic(cw=put(op.cw), k0=put(op.k0),
+                           diag_add=put(op.diag_add),
+                           pads=tuple(int(p) for p in op.pads))
+
+
+def elastic_from_tree(pc, device):
+    """The JAX package's ``ElasticGenEO`` with NumPy leaves (its pytree
+    mapped through ``np.asarray``) -> the port's ``ElasticGenEO`` on
+    ``device``: the same operator, level-1 PCG (surrogate FDM factors
+    included) and coarse space.  The JAX package's [d, z, y, x, 3, k]
+    basis becomes the port's [d, k, 3, z, y, x]."""
+    from ..structured import elastic as el
+    from ..structured import fdm, solvers
+
+    def put(a):
+        return None if a is None else torch.tensor(
+            np.asarray(a), dtype=_dtype_of(a), device=device)
+
+    sf = pc.l1.pre.fdm
+    lx, ly, lz = (put(a) for a in sf.fac.lam)
+    shift = put(sf.fac.shift)
+    fac = fdm.FDMFactor(
+        p=tuple(put(a) for a in sf.fac.p), lam=(lx, ly, lz), shift=shift,
+        den=(lz[:, :, None, None] + ly[:, None, :, None]
+             + lx[:, None, None, :] + shift).contiguous())
+    pre = el.VecFDM(solvers.ScaledFDM(fac=fac, scale=put(sf.scale),
+                                      maskf=put(sf.maskf)))
+    l1 = solvers.PCGSolver(st=_elastic_op_from(pc.l1.st, device), pre=pre,
+                           maskf=put(np.asarray(pc.l1.maskf)[..., 0]),
+                           rtol=float(pc.l1.rtol), max_it=int(pc.l1.max_it),
+                           reduce_dims=(-4, -3, -2, -1))
+    gop = el.ElasticOp(e_cell=put(pc.gop.e_cell), k0=put(pc.gop.k0),
+                       bc=put(pc.gop.bc),
+                       grid_shape=tuple(int(v) for v in pc.gop.grid_shape))
+    z = colids = col_sel = None
+    if pc.z is not None:
+        z = put(np.ascontiguousarray(
+            np.transpose(np.asarray(pc.z), (0, 5, 4, 1, 2, 3))))
+        cid = np.asarray(pc.colids, np.int64)
+        colids = torch.tensor(cid, device=device)
+        col_sel = torch.tensor(np.flatnonzero(cid.ravel() < pc.dim_e),
+                               device=device)
+    return el.ElasticGenEO(
+        grid_shape=tuple(pc.grid_shape), dom_grid=tuple(pc.dom_grid),
+        pad=tuple(pc.pad), local_shape=tuple(pc.local_shape),
+        lvl1=str(pc.lvl1), lvl2=int(pc.lvl2), hybrid=bool(pc.hybrid),
+        eff_hybrid=bool(pc.eff_hybrid), dim_e=int(pc.dim_e),
+        k_max=int(pc.k_max), gop=gop, l1=l1, pou=put(pc.pou),
+        maskf=put(pc.maskf), z=z, colids=colids, col_sel=col_sel,
+        e_evecs=put(pc.e_evecs), e_eig_inv=put(pc.e_eig_inv),
+        x0=put(pc.x0))

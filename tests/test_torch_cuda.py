@@ -336,3 +336,113 @@ def test_lobpcg_setup_on_cuda_matches_cpu(cuda, lvl, ksp):
                                   ref.stats.estim_dim_e)
     np.testing.assert_array_equal(got.stats.raw_dim_e, ref.stats.raw_dim_e)
     assert (got.its, got.result.reason) == (ref.its, ref.result.reason)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_elastic_operators_on_cuda_match_cpu_and_repeat_bitwise(cuda, dtype):
+    """The elastic cell sums (global, dilated Dirichlet, Neumann, Robin)
+    on the card equal the host's (float64: 1e-13, float32: 1e-5; the
+    float64 level-1 solve and apply 1e-9) and
+    repeated applies give the same bits: the 8 corners and the halo are
+    summed by shifted slice adds in a fixed order, no atomics; the
+    float32 products run without TF32."""
+    from geneo4petsc_tpu_torch.structured import elastic as el
+
+    g = el.elastic_grid(8, kappa_max=1e3, interp="minmax")
+    o = GenEOOptions()
+    o.lvl1, o.lvl2 = "SORAS", "0"
+    o.dls1.rtol, o.dls1.max_it = 1e-11, 500
+    pcs = {dev: el.setup_elastic(g, (2, 2, 2), 1, o, dtype=dtype,
+                                 device=dev)[0]
+           for dev in (torch.device("cpu"), cuda)}
+    ref, got = pcs[torch.device("cpu")], pcs[cuda]
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(g.n_dof)).to(dtype)
+    for name in ("matvec", "_local_solve", "apply"):
+        a = getattr(got, name)(x.to(cuda))
+        b = getattr(got, name)(x.to(cuda))
+        assert torch.equal(a, b), name
+        # the level-1 PCG at rtol 1e-11 (float64; float32 stops at its
+        # floor, on a rounding-decided iteration, so only the operator)
+        if name == "matvec" or dtype == torch.float64:
+            want = getattr(ref, name)(x)
+            assert _rel(a.cpu(), want) <= (tol if name == "matvec"
+                                           else 1e-9), name
+    d, sz, sy, sx = got.maskf.shape
+    xb = torch.from_numpy(rng.standard_normal((d, 3, 3, sz, sy, sx))) \
+        .to(dtype)
+    for op_name in ("dir_op", "neu_op"):
+        for m in (xb[:, 0], xb):
+            a = getattr(got.l1.st, op_name).matvec(m.to(cuda))
+            assert torch.equal(a, getattr(got.l1.st, op_name).matvec(
+                m.to(cuda)))
+            assert _rel(a.cpu(), getattr(ref.l1.st, op_name).matvec(m)) \
+                <= tol
+    a = got.l1.st.matvec(xb.to(cuda))
+    assert _rel(a.cpu(), ref.l1.st.matvec(xb)) <= tol
+
+
+def test_elastic_solve_on_cuda_matches_cpu(cuda):
+    """solve_elastic in float64 on the card (both refinement routes)
+    against the host: equal coarse dimensions and iterations."""
+    from geneo4petsc_tpu_torch.structured import elastic as el
+
+    g = el.elastic_grid(6, kappa_max=1e3, interp="minmax")
+    o = GenEOOptions()
+    o.lvl1, o.lvl2 = "SORAS", "E2"
+    o.dls1.rtol, o.dls1.max_it = 1e-11, 500
+    ref = el.solve_elastic(g, (2, 2, 1), 1, o, dtype=torch.float64,
+                           device="cpu")
+    for route in (False, True):
+        got = el.solve_elastic(g, (2, 2, 1), 1, o, dtype=torch.float64,
+                               device=cuda, device_refine=route)
+        assert got.pc.z.device.type == "cuda"
+        np.testing.assert_array_equal(got.stats.raw_dim_e,
+                                      ref.stats.raw_dim_e)
+        assert got.converged and got.true_res <= 1e-8
+        assert got.refined.outer_its == ref.refined.outer_its
+        assert got.refined.inner_its == ref.refined.inner_its
+
+
+def test_api_solve_on_cuda_matches_cpu(cuda):
+    """make_batch / geneo_setup / geneo_solve on the card: K1 (block
+    inverses) and K2 (every matvec) launch, and the solve equals the
+    host's."""
+    import scipy.sparse as sp
+
+    from geneo4petsc_tpu_torch import api
+
+    n, ov = 12, 2
+    a = sp.diags([[-1.0] * (n - 1), [2.0] * n, [-1.0] * (n - 1)],
+                 [-1, 0, 1]).tocsr() + sp.eye(n) * 0.01
+    g0, g1 = np.arange(0, n // 2 + ov), np.arange(n // 2 - ov, n)
+    shared = np.intersect1d(g0, g1)
+    mult = np.ones(n)
+    mult[shared] = 2.0
+
+    def neu(g):
+        w = a.toarray()[np.ix_(g, g)]
+        both = np.isin(g, shared)
+        w[np.ix_(both, both)] /= 2.0
+        return w
+
+    b = a @ np.arange(1.0, n + 1)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        batch = api.make_batch(n, [g0, g1], [neu(g0), neu(g1)],
+                               [mult[g0], mult[g1]], device=dev)
+        opts = GenEOOptions()
+        opts.lvl1, opts.lvl2 = "ASM", "1"
+        opts.dls1.type = "inverse_pallas"
+        pc, _ = api.geneo_setup(batch, opts, b=b)
+        lk.fused_local_solve.launches = lk.block_matvec.launches = 0
+        res = api.geneo_solve(batch, b, pc, KSPOptions(type="cg",
+                                                       rtol=1e-10))
+        out[dev.type] = (res, lk.fused_local_solve.launches,
+                         lk.block_matvec.launches)
+    (r_cpu, k1_cpu, k2_cpu), (r, k1, k2) = out["cpu"], out["cuda"]
+    assert (k1_cpu, k2_cpu) == (0, 0) and k1 >= r.its and k2 >= r.its
+    assert (r.its, r.reason) == (r_cpu.its, r_cpu.reason) and r.reason > 0
+    np.testing.assert_allclose(r.x.cpu().numpy(), r_cpu.x.numpy(),
+                               rtol=1e-10)

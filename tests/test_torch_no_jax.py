@@ -68,3 +68,33 @@ def test_no_import_statement_names_jax(path):
         for name in names:
             assert name.split(".")[0] not in BLOCKED, \
                 f"{path}:{node.lineno} imports {name}"
+
+
+_IMPORT_ONE = f"""
+import importlib, importlib.abc, sys
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in {BLOCKED!r}:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocked())
+importlib.import_module(sys.argv[1])
+bad = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}]
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "geneo4petsc_tpu_torch.structured.elastic", "geneo4petsc_tpu_torch.api",
+    "geneo4petsc_tpu_torch.utils.check", "geneo4petsc_tpu_torch.utils.debug",
+    "geneo4petsc_tpu_torch.utils.checkpoint"])
+def test_new_module_imports_alone_with_jax_blocked(module):
+    """Each module of the elastic backend and of the library surface
+    imports on its own in a process where JAX cannot be imported."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300, check=False,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr

@@ -165,15 +165,24 @@ def test_structured_cli_runs_heat_and_lobpcg_on_cpu():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--inpLibA", "elasticity"], "item 18"),
+    (["-ksp_type", "cg", "--inpLibA", "elasticity"], "item 18"),
     (["--nbDevices", "2"], "item 19"),
 ])
 def test_structured_cli_refuses_unported(extra, item, capsys):
+    """--nbDevices (item 19, multi-GPU) is refused with code 1 naming its
+    item; --inpLibA elasticity (item 18, ported since) runs the elastic
+    backend to convergence."""
     args = ["--structured", "2,2,1", "--inpLibA", "laplacian", "--inpLibArg",
             "--size#4#--dim#2", "--device", "cpu", "-pc_type", "geneo"]
-    assert cli.run(args + extra, out=io.StringIO()) == 1
+    out = io.StringIO()
+    rc = cli.run(args + extra, out=out)
     err = capsys.readouterr().err
-    assert "not ported" in err and item in err
+    if item == "item 19":
+        assert rc == 1 and "not ported" in err and item in err
+    else:
+        assert rc == 0 and "not ported" not in err
+        assert "INFO: nb DOFs 192," in out.getvalue()
+        assert "INFO: solve - converged (refined" in out.getvalue()
 
 
 def test_structured_modules_import_without_jax():
