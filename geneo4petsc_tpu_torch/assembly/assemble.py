@@ -111,6 +111,12 @@ class SubdomainBatch:
         """Global SpMV through the unassembled blocks (MatIS MatMult)."""
         return self.scatter_add(block_matvec(self.a_neu, self.gather(x)))
 
+    def coarse_sum(self, w: torch.Tensor) -> torch.Tensor:
+        """The coarse vector Z^T x of every domain from this batch's part
+        (the whole of it on one process; the multi-rank batches of
+        parallel/ add the ranks' parts)."""
+        return w
+
 
 @dataclass
 class AssembledProblem:

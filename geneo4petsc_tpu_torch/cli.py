@@ -5,6 +5,7 @@ Same flag surface as the JAX package's CLI:
   --inpFileA F --inpEps E --inpLibA L A --inpFileB F --metisDual
   --metisNodal --addOverlap L --debug F --verbose V --timing --shortRes
   --cmdLine --help --nbPart N
+  --nbDevices D|auto
 plus PETSc-style options consumed from the remaining argv:
   -pc_type {geneo,bjacobi,mg,none} -ksp_type {gmres,cg} -ksp_rtol
   -ksp_atol -ksp_divtol -ksp_max_it -ksp_gmres_restart -options_left
@@ -15,13 +16,17 @@ plus PETSc-style options consumed from the remaining argv:
 and one flag of its own:
   --device cpu|cuda   (default cuda; a cuda run without a card raises)
 
-Options whose code is not ported yet exit with code 1 and name the
-ROADMAP item that ports them.  Output protocol (INFO/TIME/WRNG/CMD lines,
-verbose dumps) matches the reference's formats.
+``--nbDevices D`` runs the solve on D ranks (the reference's ``mpirun
+-n D``, parallel/): in a torch.distributed group (GENEO_COORDINATOR /
+GENEO_NUM_PROCS / GENEO_PROC_ID) this process is one rank; otherwise the
+CLI launches D local ranks itself, NCCL with one card a rank on cuda,
+gloo on cpu.  Only rank 0 prints.  Output protocol (INFO/TIME/WRNG/CMD
+lines, verbose dumps) matches the reference's formats.
 """
 
 from __future__ import annotations
 
+import io
 import sys
 import time
 
@@ -54,6 +59,8 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
                   decomposition (--inpLibA laplacian|heat|elasticity,
                   -pc_type geneo)
   --device D,     cuda (default) or cpu
+  --nbDevices D,  run the solve on D ranks, one device each (D = int or
+                  'auto'); the mpirun -n analogue
   --debug F,      create debug files (F = log, bin or mat)
   --verbose V,    V=1: dump X; V=2: dump A, B and X
   --timing,       print timing
@@ -75,19 +82,8 @@ usage: geneo4petsc_tpu_torch is the PyTorch/CUDA port of geneo4petsc_tpu
   -geneo_chk F         check SPD, PoU, rank of Z and the eigensolver
 """
 
-# options of the JAX CLI whose code is not ported yet -> ROADMAP item
-_NOT_PORTED = {
-    "--nbDevices": "Queue 1, item 19 (multi-GPU)",
-}
-
-
 class CLIError(Exception):
     pass
-
-
-def _not_ported(option: str) -> CLIError:
-    return CLIError(f"Error: {option} is not ported to geneo4petsc_tpu_torch "
-                    f"yet (ROADMAP {_NOT_PORTED[option]})")
 
 
 def parse_args(argv: list[str]):
@@ -111,7 +107,14 @@ def parse_args(argv: list[str]):
         if a == "--help":
             raise CLIError("__help__")
         elif a == "--nbDevices":
-            raise _not_ported(a)
+            i += 1
+            v = need(i, a)
+            if v == "auto":
+                drv.n_devices = v
+            else:
+                drv.n_devices = int(v)
+                if drv.n_devices < 1:
+                    raise CLIError("Error: invalid option --nbDevices")
         elif a == "--debug":
             drv.debug = True
             i += 1
@@ -276,9 +279,24 @@ def run(argv: list[str], out=sys.stdout) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu to run on the host)")
+    from .parallel import multiproc
+    if multiproc.init_from_env(device) and _rank() == 0:
+        print(f"INFO: distributed: {multiproc.process_summary()}",
+              file=sys.stderr)
+    if drv.n_devices == "auto":
+        drv.n_devices = _auto_devices(device)
+    if drv.n_devices is not None and not drv.structured \
+            and pc_type != "geneo":
+        print(f"WRNG: --nbDevices ignored for -pc_type {pc_type} "
+              "(multi-device runs the geneo PC)", file=out)
+        drv.n_devices = None
     if drv.structured:
         return _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
-                               user_cmd)
+                               user_cmd, argv)
+    if drv.n_devices is not None and not _in_group():
+        return _launch(argv, drv, device, out)
+    if _rank() != 0:
+        out = io.StringIO()          # only rank 0 prints
 
     if gen.offload:
         # surfaced on stderr (stdout is the golden-diffed protocol): the
@@ -329,12 +347,14 @@ def run(argv: list[str], out=sys.stdout) -> int:
     if drv.verbose >= 2:
         print(pf.format_vec(b, drv.n_parts, "B"), file=out)
 
-    if drv.debug:
+    writer = _rank() == 0       # one rank writes the debug files
+    if drv.debug and writer:
         _debug_driver_files(ap, b, drv)
 
     # --- solve (L4/L5) ---
     res = solve_assembled(ap, pc_type=pc_type, geneo=gen, ksp=ksp, b=b,
-                          driver=drv, timers=timers)
+                          driver=drv, timers=timers,
+                          n_devices=drv.n_devices)
 
     if check:
         try:
@@ -346,7 +366,7 @@ def run(argv: list[str], out=sys.stdout) -> int:
             print(f"ERROR: {e}", file=sys.stderr)
             return 2
 
-    if dbg_level >= 1 and pc_type == "geneo":
+    if dbg_level >= 1 and pc_type == "geneo" and writer:
         from .utils import debug as dbg
         dbg.dump_timing(timers)
         if dbg_level >= 2:
@@ -359,7 +379,7 @@ def run(argv: list[str], out=sys.stdout) -> int:
         print(pf.format_vec(res.x, drv.n_parts, "X").replace(
             "The vector X is:", "The solution X is:"), file=out)
 
-    if drv.debug:
+    if drv.debug and writer:
         if drv.debug_bin:
             # PetscViewerBinary (VecLoad-compatible), --debug bin
             pf.write_vec_bin("debug.output.X.bin", res.x)
@@ -381,7 +401,7 @@ def run(argv: list[str], out=sys.stdout) -> int:
 
 
 def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
-                    user_cmd) -> int:
+                    user_cmd, argv) -> int:
     """--structured GX,GY,GZ: drive the structured scale backends
     (structured/) with the standard INFO/TIME protocol.
 
@@ -418,6 +438,24 @@ def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
     kappa_max, interp = opt.get("kappa", (1.0, ""))
     overlap = max(drv.add_overlap, 1)
     timers = Timers()
+    if drv.n_devices is not None and not _in_group():
+        # refuse a mesh the ranks cannot split before launching them
+        from .structured.sharded import need_divisible
+        if drv.inp_lib_a == "elasticity":
+            nz = opt.get("size", 4)
+        else:
+            dim = opt.get("dim", 3)
+            nz = _grid.grid_size(opt.get("size", 4),
+                                 opt.get("weakScaling", 1), dim) \
+                if dim >= 3 else 1
+        try:
+            need_divisible(nz, int(np.prod(dom_grid)), drv.n_devices)
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+        return _launch(argv, drv, device, out)
+    if _rank() != 0:
+        out = io.StringIO()          # only rank 0 prints
     if drv.inp_lib_a == "elasticity":
         if ksp.type != "cg":
             print("Error: --structured elasticity supports -ksp_type cg",
@@ -430,7 +468,8 @@ def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
         try:
             res = solve_elastic(grid, dom_grid, overlap, opts=gen,
                                 tol=ksp.rtol, timers=timers, device=device,
-                                checkpoint_dir=_checkpoint_dir())
+                                checkpoint_dir=_checkpoint_dir(),
+                                n_devices=drv.n_devices)
         except ValueError as e:
             print(f"Error: {e}", file=sys.stderr)
             return 1
@@ -451,7 +490,8 @@ def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
             res = solve_structured(grid, dom_grid, overlap, geneo=gen,
                                    ksp=ksp, tol=ksp.rtol, timers=timers,
                                    device=device,
-                                   checkpoint_dir=_checkpoint_dir())
+                                   checkpoint_dir=_checkpoint_dir(),
+                                   n_devices=drv.n_devices)
         except ValueError as e:
             print(f"Error: {e}", file=sys.stderr)
             return 1
@@ -463,6 +503,8 @@ def _run_structured(drv, ksp, gen, pc_type, out, t_total, device,
         n_dof_line = grid.n_nodes
 
     mode = f"structured {dom_grid[0]}x{dom_grid[1]}x{dom_grid[2]}"
+    if drv.n_devices is not None:
+        mode += f", nb devices {drv.n_devices}"
     print(f"INFO: nb DOFs {n_dof_line}, nb elements {n_elems}, "
           f"nnz coefs {nnz}, nb partitions {res.n_dom}, overlap {overlap}, "
           f"{mode}", file=out)
@@ -554,8 +596,52 @@ def _dump_a(ap, drv, out):
         print(pf.format_matis(blocks, drv.n_parts, "A"), file=out)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _in_group() -> bool:
+    import torch.distributed as dist
+    return dist.is_initialized()
+
+
+def _auto_devices(device) -> int:
+    """--nbDevices auto: the group's size, else every card of a cuda run
+    (one rank on the CPU)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _launch(argv, drv, device, out) -> int:
+    """The one-command launch: D local ranks, each running this CLI;
+    rank 0's output is the run's."""
+    from .parallel import multiproc
+    try:
+        multiproc.check_cards(drv.n_devices, device)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    rc, text = multiproc.run_ranks(_rank_run, drv.n_devices, args=(argv,),
+                                   device=device)
+    out.write(text)
+    return rc
+
+
+def _rank_run(argv):
+    """One launched rank of the CLI: its return code and what it printed
+    (rank 0's is the run's output)."""
+    buf = io.StringIO()
+    rc = run(argv, out=buf)
+    return rc, buf.getvalue()
+
+
 def _print_info(res, drv, ksp, gen, pc_type, out):
     mode = "metis dual" if drv.metis_dual else "metis nodal"
+    if drv.n_devices is not None and pc_type == "geneo":
+        mode += f", nb devices {drv.n_devices}"
     print(f"INFO: nb DOFs {res.n_dof}, nb elements {res.n_elems}, "
           f"nnz coefs {res.nnz}, nb partitions {res.n_dom}, "
           f"overlap {drv.add_overlap}, {mode}", file=out)

@@ -120,6 +120,8 @@ class DriverOptions:
     ``device``: where the solve runs, "cuda" or "cpu" (``--device``).
     ``structured``: "GX,GY,GZ" box decomposition of the structured scale
     path (``--structured``), "" for the generic path.
+    ``n_devices``: ranks of the solve (``--nbDevices D``; "auto": the
+    group's size, or the cards of a cuda run), None for one process.
     """
 
     inp_file_a: str = ""
@@ -141,6 +143,7 @@ class DriverOptions:
     debug_mat: bool = False
     device: str = "cuda"
     structured: str = ""
+    n_devices: int | str | None = None
     # -pc_mg_* options (the reference sweep's MG_OPT,
     # tst/laplacian/laplacianRun.sh: "-pc_mg_cycle_type w
     # -pc_mg_smoothup 5 -pc_mg_smoothdown 5")

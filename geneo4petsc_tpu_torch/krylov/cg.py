@@ -28,7 +28,8 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
              max_it: int = 10000,
              norm_type: str = "preconditioned",
              stall_its: int | None = None,
-             flexible: bool = False) -> cm.SolveResult:
+             flexible: bool = False,
+             ip: cm.Inner = cm.LOCAL) -> cm.SolveResult:
     """stall_its (off by default — PETSc has no stagnation test): exit
     with CONVERGED_STEP_LENGTH when the residual norm has not improved by
     1% for `stall_its` consecutive iterations.  Used by the
@@ -39,7 +40,10 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
     beta = z_{k+1}.(r_{k+1} - r_k) / z_k.r_k instead of Fletcher-Reeves.
     Identical for a FIXED SPD preconditioner; needed when the
     preconditioner varies between applications (inexact Schwarz: the
-    structured path's PCG local solves)."""
+    structured path's PCG local solves).
+
+    ip: the inner products (``krylov.common.Inner``); ``DistInner`` for
+    vectors split across ranks."""
     if pc_apply is None:
         pc_apply = lambda v: v  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -47,22 +51,22 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
     # KSPConvergedDefault rtol scale: ||M b|| (preconditioned norm, default),
     # ||b|| (unpreconditioned), sqrt(b . M b) (natural).
     if norm_type == "unpreconditioned":
-        bnorm_t = torch.linalg.vector_norm(b)
+        bnorm_t = ip.norm(b)
     elif norm_type == "natural":
-        bnorm_t = torch.sqrt(torch.abs(torch.dot(b, pc_apply(b))))
+        bnorm_t = torch.sqrt(torch.abs(ip.dot(b, pc_apply(b))))
     else:
-        bnorm_t = torch.linalg.vector_norm(pc_apply(b))
+        bnorm_t = ip.norm(pc_apply(b))
 
     def res_norm(r, z, rz):
         if norm_type == "unpreconditioned":
-            return torch.linalg.vector_norm(r)
+            return ip.norm(r)
         if norm_type == "natural":
             return torch.sqrt(torch.abs(rz))
-        return torch.linalg.vector_norm(z)
+        return ip.norm(z)
 
     r = b - matvec(x)
     z = pc_apply(r)
-    rz = torch.dot(r, z)
+    rz = ip.dot(r, z)
     bnorm, rnorm0, rz_h = cm.host_scalars(bnorm_t, res_norm(r, z, rz), rz)
     hist = [rnorm0]
     reason = cm.converged_default(rnorm0, bnorm, 0, rtol, atol, dtol, max_it)
@@ -76,13 +80,13 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
     since = 0
     while reason == cm.CONVERGED_ITERATING:
         w = matvec(p)
-        pw = torch.dot(p, w)
+        pw = ip.dot(p, w)
         alpha = rz / pw
         x = x + alpha * p
         r_old = r
         r = r - alpha * w
         z = pc_apply(r)
-        rz2 = torch.dot(r, z)
+        rz2 = ip.dot(r, z)
         it += 1
         rnorm, pw_h, rz2_h = cm.host_scalars(res_norm(r, z, rz2), pw, rz2)
         hist.append(rnorm)
@@ -100,7 +104,7 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
             if since >= stall_its and reason == cm.CONVERGED_ITERATING:
                 reason = cm.CONVERGED_STEP_LENGTH
         if flexible:
-            beta = (rz2 - torch.dot(r_old, z)) / rz
+            beta = (rz2 - ip.dot(r_old, z)) / rz
         else:
             beta = rz2 / rz
         p = z + beta * p

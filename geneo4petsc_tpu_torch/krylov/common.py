@@ -75,6 +75,67 @@ class SolveResult:
         return self.reason >= 0
 
 
+class Inner:
+    """The reductions of the Krylov loops over vectors that one process
+    holds whole: torch's own dot, 2-norm, max|.| and basis product."""
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.dot(a, b)
+
+    def norm(self, a: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.vector_norm(a)
+
+    def amax(self, a: torch.Tensor) -> torch.Tensor:
+        return a.abs().max()
+
+    def basis_dot(self, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """[k, n] @ [n]: the inner products of w with k basis vectors."""
+        return v @ w
+
+
+LOCAL = Inner()
+
+
+class DistInner(Inner):
+    """The same reductions over vectors split across the ranks of a
+    process group: each rank reduces its own rows, one ``all_reduce``
+    adds (or maxes) the partials.  The 2-norm is sqrt of the summed
+    squares of the local norms; on one rank that is the local norm
+    itself (sqrt(fl(n*n)) = n in binary floating point), so a
+    one-rank run keeps the single-process bits."""
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def dot(self, a, b):
+        return self._sum(torch.dot(a, b))
+
+    def norm(self, a):
+        n = torch.linalg.vector_norm(a)
+        return torch.sqrt(self._sum(n * n))
+
+    def amax(self, a):
+        import torch.distributed as dist
+        m = a.abs().max() if a.numel() else a.new_zeros(())
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return m
+
+    def basis_dot(self, v, w):
+        return self._sum(v @ w)
+
+    def any(self, flag: torch.Tensor) -> bool:
+        """A boolean that is true on any rank."""
+        import torch.distributed as dist
+        t = flag.to(torch.int32).reshape(1)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t)
+
+
 def host_scalars(*scalars: torch.Tensor) -> list[float]:
     """0-d tensors -> Python floats with one device synchronization."""
     return torch.stack(scalars).tolist()

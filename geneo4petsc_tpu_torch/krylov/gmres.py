@@ -28,7 +28,10 @@ def gmres_solve(matvec: Callable, b: torch.Tensor,
                 x0: torch.Tensor | None = None,
                 rtol: float = 1e-5, atol: float = 1e-50, dtol: float = 1e4,
                 max_it: int = 10000, restart: int = 30,
-                norm_type: str = "preconditioned") -> cm.SolveResult:
+                norm_type: str = "preconditioned",
+                ip: cm.Inner = cm.LOCAL) -> cm.SolveResult:
+    """ip: the inner products (``krylov.common.Inner``); ``DistInner``
+    for vectors split across ranks."""
     del norm_type  # left-preconditioned norm (PETSc gmres default)
     m = restart
     if pc_apply is None:
@@ -38,7 +41,7 @@ def gmres_solve(matvec: Callable, b: torch.Tensor,
     # KSPConvergedDefault scales rtol by ||M b||_2 when the norm type is
     # preconditioned (regardless of nonzero initial guess, unless UIRNorm is
     # requested — the reference never does).
-    bnorm = float(torch.linalg.vector_norm(pc_apply(b)))
+    bnorm = float(ip.norm(pc_apply(b)))
 
     hist: list[float] = []
     it = 0
@@ -46,7 +49,7 @@ def gmres_solve(matvec: Callable, b: torch.Tensor,
     rnorm = rnorm0 = math.inf
     while reason == cm.CONVERGED_ITERATING:
         r = pc_apply(b - matvec(x))
-        beta = float(torch.linalg.vector_norm(r))
+        beta = float(ip.norm(r))
         if it == 0:
             rnorm0 = beta
         hist[it:] = [beta]
@@ -65,13 +68,13 @@ def gmres_solve(matvec: Callable, b: torch.Tensor,
         k = 0
         while k < m and reason == cm.CONVERGED_ITERATING:
             w = pc_apply(matvec(V[k]))
-            wnorm0_t = torch.linalg.vector_norm(w)
+            wnorm0_t = ip.norm(w)
             basis = V[:k + 1]
-            h1 = basis @ w
+            h1 = ip.basis_dot(basis, w)
             w = w - basis.T @ h1
-            h2 = basis @ w
+            h2 = ip.basis_dot(basis, w)
             w = w - basis.T @ h2
-            hk1_t = torch.linalg.vector_norm(w)
+            hk1_t = ip.norm(w)
             col_h = torch.cat([h1 + h2, hk1_t[None], wnorm0_t[None]]).tolist()
             hk1, wnorm0 = col_h[k + 1], col_h[k + 2]
             happy = hk1 <= 1e-14 * wnorm0

@@ -27,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import common as cm
 from .cg import cg_solve
 
 
@@ -36,20 +37,20 @@ def _pow2_at_least(m: torch.Tensor) -> torch.Tensor:
     return torch.where(m > 0, s, torch.ones_like(s))
 
 
-def _norm64_safe(r: torch.Tensor):
+def _norm64_safe(r: torch.Tensor, ip: cm.Inner = cm.LOCAL):
     """Overflow-safe 2-norm: scale by the nearest power of two >= max|r|
     (exact in binary floating point), returning (norm, scale)."""
-    s = _pow2_at_least(r.abs().max())
-    return torch.linalg.vector_norm(r * (1.0 / s)) * s, s
+    s = _pow2_at_least(ip.amax(r))
+    return ip.norm(r * (1.0 / s)) * s, s
 
 
-def _residual64(op, b, x):
+def _residual64(op, b, x, ip):
     r = b - op.matvec(x)
-    rn, s = _norm64_safe(r)
+    rn, s = _norm64_safe(r, ip)
     return r, rn, s
 
 
-def _rescale_x0(b, r, x0):
+def _rescale_x0(b, r, x0, ip):
     """Salvage a PATHOLOGICAL initial guess (first residual >= ||b|| or
     non-finite) by the optimal line scaling alpha = argmin ||b - a A
     x0|| = <b, A x0> / ||A x0||^2, with overflow-safe scaled dots and
@@ -57,17 +58,17 @@ def _rescale_x0(b, r, x0):
     feasible set, so the rescaled start is never worse than x = 0; if r
     itself is non-finite alpha collapses to exactly 0."""
     ax = b - r
-    _, sa = _norm64_safe(ax)
-    _, sb = _norm64_safe(b)
+    _, sa = _norm64_safe(ax, ip)
+    _, sb = _norm64_safe(b, ip)
     axs = ax * (1.0 / sa)
-    num = torch.dot(axs, b * (1.0 / sb))
-    den = torch.dot(axs, axs)
+    num = ip.dot(axs, b * (1.0 / sb))
+    den = ip.dot(axs, axs)
     alpha = torch.where(den > 0, num / den * (sb / sa),
                         torch.zeros_like(den))
     alpha = torch.where(torch.isfinite(alpha), alpha,
                         torch.zeros_like(alpha))
     r2 = b - alpha * ax
-    rn, s = _norm64_safe(r2)
+    rn, s = _norm64_safe(r2, ip)
     return alpha * x0, r2, rn, s
 
 
@@ -123,16 +124,19 @@ def _finish(x, history, best_x, best_rel, converged, outer, inner_total):
 def refined_solve_device(op64, b64: torch.Tensor, inner_solver: Callable,
                          tol: float = 1e-8, inner_rtol: float = 1e-5,
                          max_outer: int = 14,
-                         x0: torch.Tensor | None = None) -> RefinedResult:
+                         x0: torch.Tensor | None = None,
+                         ip: cm.Inner = cm.LOCAL) -> RefinedResult:
     """Device-resident mixed-precision refinement.
 
     x/r/b live on b64's device in float64 and the truth residual is one
     float64 ``op64.matvec`` per outer pass; the host sees two scalars a
     pass.  inner_rtol floors at 1e-5: the f32 preconditioned-residual
     floor is problem-scaled, and an unreachable inner target would burn
-    the inner max_it at the floor; extra f64 outer passes are cheaper."""
+    the inner max_it at the floor; extra f64 outer passes are cheaper.
+    ``ip``: the inner products of the vectors (``krylov.common.DistInner``
+    for vectors split across ranks)."""
     b64 = b64.to(torch.float64)
-    bnorm_t, bscale = _norm64_safe(b64)
+    bnorm_t, bscale = _norm64_safe(b64, ip)
     bnorm = float(bnorm_t)
     x = torch.zeros_like(b64) if x0 is None else x0.to(b64.device,
                                                        torch.float64)
@@ -145,12 +149,12 @@ def refined_solve_device(op64, b64: torch.Tensor, inner_solver: Callable,
             # x = 0 -> r = b exactly: skip one truth product
             r, rel, rs = b64, 1.0, bscale
         else:
-            r, rn, rs = _residual64(op64, b64, x)
+            r, rn, rs = _residual64(op64, b64, x, ip)
             rel = float(rn) / bnorm
         if outer == 0 and x0 is not None and (
                 not np.isfinite(rel) or rel >= 1.0):
             # pathological deflation guess: rescale to the line optimum
-            x, r, rn, rs = _rescale_x0(b64, r, x)
+            x, r, rn, rs = _rescale_x0(b64, r, x, ip)
             rel = float(rn) / bnorm
             if not np.isfinite(rel) or rel > 0.99:
                 # a rescaled guess that buys < 1% is junk: restart at 0
@@ -171,7 +175,7 @@ def refined_solve_device(op64, b64: torch.Tensor, inner_solver: Callable,
         x = _update64(x, res.x, rs)
     else:
         outer = max_outer
-        _r, rn, _rs = _residual64(op64, b64, x)
+        _r, rn, _rs = _residual64(op64, b64, x, ip)
         rel = float(rn) / bnorm
         history.append(rel)
         if np.isfinite(rel) and rel < best_rel:

@@ -99,8 +99,8 @@ class GenEOPreconditioner:
         ztx = torch.einsum("dnk,dn->dk", self.z_loc, xl)
         # coarse columns are unique, so each real slot receives exactly
         # one value (the sum is exact); pads land in the dump slot dim_e
-        w = x.new_zeros(self.dim_e + 1).index_add_(
-            0, self.colids.reshape(-1), ztx.reshape(-1))[:-1]
+        w = self.batch.coarse_sum(x.new_zeros(self.dim_e + 1).index_add_(
+            0, self.colids.reshape(-1), ztx.reshape(-1))[:-1])
         # E^-1 as W diag(e_eig_inv) W^T: W = L^-T with unit weights on the
         # Cholesky path, the eigenvectors with truncated inverse
         # eigenvalues on the spectral path (factor_e)

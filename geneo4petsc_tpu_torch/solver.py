@@ -8,6 +8,7 @@ oracle on the host.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -20,6 +21,7 @@ from .io import element_input as ei
 from .krylov import common as kcm
 from .krylov.cg import cg_solve
 from .krylov.gmres import gmres_solve
+from .parallel import multiproc
 from .partition.decompose import partition_and_decompose
 from .precond.bjacobi import setup_bjacobi
 from .precond.geneo import GenEOStats, setup_geneo
@@ -75,9 +77,36 @@ def solve_assembled(assembled: AssembledProblem,
                     ksp: KSPOptions | None = None,
                     b: np.ndarray | None = None,
                     driver: DriverOptions | None = None,
-                    timers: Timers | None = None) -> SolveOutput:
+                    timers: Timers | None = None,
+                    n_devices: int | None = None) -> SolveOutput:
     """Set up the preconditioner and run the Krylov solve on the device
-    that holds ``assembled.batch``.  pc_type: "geneo" or "none"."""
+    that holds ``assembled.batch``.  pc_type: "geneo" or "none".
+
+    ``n_devices`` (geneo only): run the Krylov iterations on that many
+    ranks with owner-block vectors and a packed halo exchange
+    (parallel/dist.py — the reference's ``mpirun -n``,
+    src/geneo4PETSc.cpp:1569-1633).  In a torch.distributed group of
+    that size this process is one rank (its device holds the rank's
+    chunk); with no group, the ranks are launched here, each on a device
+    of ``assembled.batch``'s type, and rank 0's result comes back
+    (without ``pc`` and ``assembled``)."""
+    if n_devices is not None and pc_type == "geneo":
+        ranks = multiproc.group_ranks(n_devices, assembled.batch.device)
+        if ranks is None:
+            return multiproc.run_ranks(
+                _rank_solve, n_devices, args=(
+                    dataclasses.replace(assembled, batch=_batch_to(
+                        assembled.batch, None)),
+                    assembled.batch.device.type,
+                    dict(pc_type=pc_type, geneo=geneo, ksp=ksp, b=b,
+                         driver=driver, timers=timers,
+                         n_devices=n_devices)),
+                device=assembled.batch.device)
+        if assembled.batch.device != ranks.device:
+            assembled = dataclasses.replace(
+                assembled, batch=_batch_to(assembled.batch, ranks.device))
+    else:
+        ranks = None
     geneo = geneo or GenEOOptions()
     ksp = ksp or KSPOptions()
     driver = driver or DriverOptions()
@@ -130,17 +159,30 @@ def solve_assembled(assembled: AssembledProblem,
     if ksp.type == "gmres":
         kw["restart"] = ksp.restart
     solver_fn = cg_solve if ksp.type == "cg" else gmres_solve
+    if ranks is not None:
+        from .krylov.common import DistInner
+        from .parallel.dist import dist_geneo
+        node_part = getattr(assembled.decomp, "node_part", None)
+        matvec, pc_apply, _pc_d, shard_vec, unshard_vec = dist_geneo(
+            pc, ranks, node_part=node_part)
+        b_t, x0 = shard_vec(b_t), shard_vec(x0)
+        kw["ip"] = DistInner(ranks.group)
+    else:
+        matvec = batch.matvec
     t0 = time.perf_counter()
-    result = solver_fn(batch.matvec, b_t, pc_apply, x0=x0, **kw)
+    result = solver_fn(matvec, b_t, pc_apply, x0=x0, **kw)
     _sync(device)
     timers.add("ksp_iterations", time.perf_counter() - t0)
+    if ranks is not None:
+        result = dataclasses.replace(result, x=torch.from_numpy(
+            unshard_vec(result.x)))
 
     x_np = result.x.cpu().numpy().astype(np.float64)
     r = assembled.a_csr @ x_np - b
     bn = np.linalg.norm(b)
     true_res = float(np.linalg.norm(r) / bn) if bn > 0 else float("inf")
 
-    if result.reason < 0:
+    if result.reason < 0 and (ranks is None or ranks.rank == 0):
         # DIVERGED_*: dump Krylov + PC state even with debugging off
         # (checkKSPSolve, src/geneo.cpp:1397-1433)
         dump_failure(result, ksp, pc_name, stats=stats)
@@ -157,8 +199,10 @@ def solve_mesh(mesh: ei.ElementMesh, device, n_dom: int = 2,
                geneo: GenEOOptions | None = None,
                ksp: KSPOptions | None = None,
                driver: DriverOptions | None = None,
-               timers: Timers | None = None) -> SolveOutput:
-    """partition + decompose + assemble on ``device`` + solve."""
+               timers: Timers | None = None,
+               n_devices: int | None = None) -> SolveOutput:
+    """partition + decompose + assemble on ``device`` + solve
+    (``n_devices``: see solve_assembled)."""
     driver = driver or DriverOptions()
     timers = timers or Timers()
     t0 = time.perf_counter()
@@ -170,4 +214,27 @@ def solve_mesh(mesh: ei.ElementMesh, device, n_dom: int = 2,
     assembled = assemble(mesh, decomp, device)
     timers.add("create_a", time.perf_counter() - t0)
     return solve_assembled(assembled, pc_type=pc_type, geneo=geneo, ksp=ksp,
-                           driver=driver, timers=timers)
+                           driver=driver, timers=timers, n_devices=n_devices)
+
+
+def _batch_to(batch, device):
+    """A SubdomainBatch with its arrays on ``device``; ``None``: as NumPy
+    arrays (what crosses to a launched rank: plain pickles, no shared
+    tensor handles)."""
+    def move(v):
+        if device is None:
+            return v.cpu().numpy()
+        return torch.as_tensor(v).to(device)
+
+    return dataclasses.replace(batch, **{
+        f.name: move(getattr(batch, f.name))
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), (torch.Tensor, np.ndarray))})
+
+
+def _rank_solve(assembled, device_type, kw):
+    """One launched rank of solve_assembled(n_devices=...)."""
+    out = solve_assembled(dataclasses.replace(
+        assembled, batch=_batch_to(assembled.batch, multiproc.current(
+            device_type).device)), **kw)
+    return dataclasses.replace(out, pc=None, assembled=None)

@@ -66,7 +66,8 @@ from ..precond.geneo import GenEOStats, _gamma_loc
 from . import halo, solvers
 from . import local_ops as lo
 from .decompose import StructuredDecomposition
-from .geneo import coarse_e, finalize_coarse, tau_loc_structured
+from .geneo import (LocalSchwarz, coarse_e, finalize_coarse,
+                    tau_loc_structured)
 from .grid import StructuredGrid
 
 # device memory allowed to one domain chunk of the LOBPCG block applies
@@ -446,7 +447,7 @@ def _scalar_surrogate(k0: np.ndarray, cw: torch.Tensor,
 # ===================== preconditioner =====================
 
 @dataclass(frozen=True)
-class ElasticGenEO:
+class ElasticGenEO(LocalSchwarz):
     """The vector-DOF twin of StructuredGenEO: same applyGenEOPC
     semantics (src/geneo.cpp:2051-2098) on [n_dom, 3, lz, ly, lx]
     component fields; the coarse basis is [n_dom, k_max, 3, lz, ly,
@@ -485,44 +486,6 @@ class ElasticGenEO:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self.gop.matvec(x)
-
-    def apply_q(self, x: torch.Tensor) -> torch.Tensor:
-        xb = self._gather(x)
-        n_dom = xb.shape[0]
-        zf = self.z.reshape(n_dom, self.k_max, -1)
-        ztx = torch.bmm(zf, xb.reshape(n_dom, -1, 1)).reshape(-1)
-        # the real coarse columns are numbered in domain order
-        w = ztx[self.col_sel]
-        w = self.e_evecs @ (self.e_eig_inv * (self.e_evecs.T @ w))
-        wl = torch.cat([w, w.new_zeros(1)])[self.colids]     # [d, k_max]
-        yb = torch.bmm(wl.unsqueeze(1), zf).reshape(xb.shape)
-        return self._scatter(yb)
-
-    def _local_solve(self, x: torch.Tensor) -> torch.Tensor:
-        xb = self._gather(x)
-        pou = self.pou.unsqueeze(1)
-        if self.lvl1 in ("RAS", "SRAS", "ORAS", "SORAS"):
-            xb = xb * pou                           # (1.29) of R1
-        ub = self.l1.solve(xb)
-        if self.lvl1 in ("SRAS", "SORAS"):
-            ub = ub * pou
-        return self._scatter(ub * self.maskf.unsqueeze(1))
-
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        if self.lvl2 and not self.eff_hybrid:
-            y = self.apply_q(x)
-        else:
-            y = torch.zeros_like(x)
-        t = x
-        if self.hybrid and not self.eff_hybrid:
-            t = t - self.matvec(y)                  # (I - P^T) x
-        t = self._local_solve(t)
-        if self.hybrid:
-            t = t - self.apply_q(self.matvec(t))    # (I - P) t
-        return y + t
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self.apply(x)
 
 
 # ===================== setup =====================
@@ -972,18 +935,21 @@ def setup_elastic(g: ElasticGrid, dom_grid, overlap: int,
 
 # ===================== solve driver =====================
 
-def make_elastic_inner(pc: ElasticGenEO, inner_max_it: int = 2000):
+def make_elastic_inner(pc, inner_max_it: int = 2000, ip=None):
     """Inner correction solve ``inner(r32, rtol)`` in the preconditioner's
     dtype: flexible CG (the level-1 solves are inexact), stopping on
     stagnation (stall_its 50: the float32 floor is the f64 outer loop's
-    business)."""
+    business).  ``pc``: ElasticGenEO, or its ShardedGenEO with ``ip``
+    the ranks' inner products."""
     eff = bool(pc.eff_hybrid)
+    kw = {} if ip is None else {"ip": ip}
 
     def inner(r32, rtol):
         r = r32.to(pc.maskf.dtype)
         x0 = pc.apply_q(r) if eff else None
         return cg_solve(pc.matvec, r, pc.apply, x0=x0, rtol=rtol,
-                        max_it=inner_max_it, stall_its=50, flexible=True)
+                        max_it=inner_max_it, stall_its=50, flexible=True,
+                        **kw)
 
     return inner
 
@@ -1034,15 +1000,35 @@ def solve_elastic(g: ElasticGrid, dom_grid, overlap: int,
     goes negative and CG stops on DIVERGED_INDEFINITE_MAT, and the
     float32 LOBPCG leaves a coarse space the prune cuts (PERF.md).
     ``lobpcg_start``, ``budget_bytes``: see setup_elastic;
-    ``checkpoint_dir``: utils.checkpoint.setup_with_checkpoint."""
+    ``checkpoint_dir``: utils.checkpoint.setup_with_checkpoint.
+
+    ``n_devices``: run on that many ranks, as solve_structured: flat [3n]
+    vectors in z-slabs, contiguous domain chunks, the per-cell modulus
+    and E replicated (structured/sharded.shard_elastic); in a group of
+    that size this process is one rank, with none the ranks are launched
+    here and rank 0's result comes back (without ``pc``)."""
     from ..krylov.refine import refined_solve, refined_solve_device
+    from ..parallel import multiproc
     from ..utils.checkpoint import setup_with_checkpoint
     from ..utils.timers import Timers
     from .solve import StructuredSolveOutput
 
+    ranks = None
     if n_devices is not None:
-        raise ValueError("n_devices: multi-GPU runs are not ported yet "
-                         "(ROADMAP Queue 1, item 19)")
+        from .sharded import need_divisible
+        need_divisible(g.shape[2], int(np.prod(dom_grid)), n_devices)
+        ranks = multiproc.group_ranks(n_devices, device)
+        if ranks is None:
+            return multiproc.run_ranks(_rank_solve, n_devices, args=(
+                g, dom_grid, overlap, dict(
+                    opts=opts, tol=tol, dtype=dtype, device=str(
+                        torch.device(device).type),
+                    device_refine=device_refine, inner_max_it=inner_max_it,
+                    n_devices=n_devices, lobpcg_start=lobpcg_start,
+                    budget_bytes=budget_bytes, setup_dtype=setup_dtype,
+                    checkpoint_dir=checkpoint_dir)),
+                device=device)
+        device = ranks.device
     opts = opts or GenEOOptions()
     timers = timers or Timers()
     device = torch.device(device)
@@ -1081,11 +1067,16 @@ def solve_elastic(g: ElasticGrid, dom_grid, overlap: int,
                               device=device, lobpcg_start=lobpcg_start,
                               budget_bytes=budget_bytes),
         g, dom_grid, overlap, opts, setup_dtype, timers, checkpoint_dir,
-        device)
+        device, ranks)
     if setup_dtype != dtype:
         pc = dataclasses.replace(cast_tree(pc, dtype), gop=op64)
     sync()
     timers.add("setup", time.perf_counter() - t0)
+
+    if ranks is not None:
+        return _solve_elastic_ranks(g, pc, stats, op64, b, opts, tol,
+                                    timers, ranks, inner_max_it,
+                                    time.perf_counter(), device_refine)
 
     t0 = time.perf_counter()
     eff = bool(opts.eff_hybrid)
@@ -1109,3 +1100,56 @@ def solve_elastic(g: ElasticGrid, dom_grid, overlap: int,
         refined=ref, x=ref.x, b=b, pc_name=opts.name, stats=stats,
         timers=timers, true_res=true_res, n_dof=g.n_dof,
         n_dom=int(np.prod(dom_grid)), pc=pc)
+
+
+def _rank_solve(g, dom_grid, overlap, kw):
+    """One launched rank of solve_elastic(n_devices=...)."""
+    from .solve import host_output
+    return host_output(solve_elastic(g, dom_grid, overlap, **kw))
+
+
+def _solve_elastic_ranks(g, pc, stats, op64, b, opts, tol, timers, ranks,
+                         inner_max_it, t_setup, device_refine):
+    """The iterations of a multi-rank elastic solve on this rank's planes
+    and domains, by the single-process refinement route
+    (``device_refine``)."""
+    from ..krylov import common as cm
+    from ..krylov.refine import refined_solve, refined_solve_device
+    from .sharded import shard_elastic, shard_refine64
+    from .solve import StructuredSolveOutput
+
+    device = ranks.device
+    _mv, _ap, sh, shard_vec = shard_elastic(pc, ranks)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    timers.add("setup", time.perf_counter() - t_setup)
+    t0 = time.perf_counter()
+    ip = cm.DistInner(ranks.group)
+    inner = make_elastic_inner(sh, int(inner_max_it), ip=ip)
+    x0 = sh.x0.double() if opts.eff_hybrid else None
+    if device_refine:
+        ref = refined_solve_device(shard_refine64(op64, ranks),
+                                   shard_vec(b), inner, tol=tol, x0=x0,
+                                   ip=ip)
+        ref.x = sh.unshard(ref.x)
+        b = b.cpu().numpy()
+        true_res = ref.true_res
+    else:
+        def inner_host(r32, rtol):
+            res = inner(shard_vec(r32), rtol)
+            return dataclasses.replace(res, x=torch.from_numpy(
+                sh.unshard(res.x)))
+
+        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        ref = refined_solve(
+            b, lambda x: b - g.matvec(x), inner_host, tol=tol,
+            x0=None if x0 is None else sh.unshard(x0), device=device)
+        true_res = float(np.linalg.norm(b - g.matvec(ref.x))
+                         / np.linalg.norm(b))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    timers.add("solve", time.perf_counter() - t0)
+    return StructuredSolveOutput(
+        refined=ref, x=ref.x, b=b, pc_name=opts.name, stats=stats,
+        timers=timers, true_res=true_res, n_dof=g.n_dof,
+        n_dom=int(np.prod(pc.dom_grid)), pc=sh)

@@ -51,8 +51,74 @@ from .grid import GlobalStencil, global_stencil
 LOBPCG_BUDGET_BYTES = 6e9
 
 
+class LocalSchwarz:
+    """The per-iteration mathematics of the structured preconditioners
+    (applyGenEOPC, src/geneo.cpp:2051-2098) written on local boxes, so
+    that every vector layout shares it: the global layout
+    (StructuredGenEO, ElasticGenEO), the block-major one
+    (blockmode.BlockGenEO) and the rank-split one
+    (sharded.ShardedGenEO).  A layout supplies ``_gather`` (vector ->
+    local boxes [n_dom, (3,) lz, ly, lx]), ``_scatter`` (the adjoint)
+    and ``matvec``; the fields below come from the set-up
+    preconditioner.  Fields [n_dom, lz, ly, lx] meet vector boxes
+    through ``lo.lift`` (a unit component axis for the elastic
+    backend)."""
+
+    def coarse_local(self, xb: torch.Tensor, coarse_w=None) -> torch.Tensor:
+        """Z E^-1 Z^T on local boxes, before the scatter (applyQ).
+        ``coarse_w(ztx)``: the global coarse vector from the flat local
+        Z^T x (default: the real entries in order; the rank-split layout
+        adds the ranks' entries)."""
+        n_dom = xb.shape[0]
+        zf = self.z.reshape(n_dom, self.k_max, -1)
+        ztx = torch.bmm(zf, xb.reshape(n_dom, -1, 1)).reshape(-1)
+        # the real coarse columns are numbered in domain order, so the
+        # global coarse vector is the real entries of Z^T x in order
+        w = ztx[self.col_sel] if coarse_w is None else coarse_w(ztx)
+        w = self.e_evecs @ (self.e_eig_inv * (self.e_evecs.T @ w))
+        wl = torch.cat([w, w.new_zeros(1)])[self.colids]     # [d, k_max]
+        return torch.bmm(wl.unsqueeze(1), zf).reshape(xb.shape)
+
+    def l1_local(self, xb: torch.Tensor) -> torch.Tensor:
+        """The level-1 solve on local boxes, masked (applyLevel1)."""
+        if self.lvl1 in ("RAS", "SRAS", "ORAS", "SORAS"):
+            xb = xb * lo.lift(self.pou, xb)         # (1.29) of R1
+        ub = self.l1.solve(xb)
+        if self.lvl1 in ("SRAS", "SORAS"):
+            ub = ub * lo.lift(self.pou, ub)
+        # pad slots are decoupled in the factor but masking pins them to
+        # exact zeros
+        return ub * lo.lift(self.maskf, ub)
+
+    # ---------------- level 2: Q = Z E^-1 Z^T (applyQ) ----------------
+    def apply_q(self, x: torch.Tensor) -> torch.Tensor:
+        return self._scatter(self.coarse_local(self._gather(x)))
+
+    # ---------------- level 1 (applyLevel1) ----------------
+    def _local_solve(self, x: torch.Tensor) -> torch.Tensor:
+        return self._scatter(self.l1_local(self._gather(x)))
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Full PC apply (applyGenEOPC): Y = Q X + L1(X) with optional
+        hybrid projections — (7.53) of R1."""
+        if self.lvl2 and not self.eff_hybrid:
+            y = self.apply_q(x)
+        else:
+            y = torch.zeros_like(x)
+        t = x
+        if self.hybrid and not self.eff_hybrid:
+            t = t - self.matvec(y)                  # (I - P^T) x
+        t = self._local_solve(t)
+        if self.hybrid:
+            t = t - self.apply_q(self.matvec(t))    # (I - P) t
+        return y + t
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(x)
+
+
 @dataclass(frozen=True)
-class StructuredGenEO:
+class StructuredGenEO(LocalSchwarz):
     """Immutable setup product; ``apply`` is the per-iteration hot path.
 
     Mirrors GenEOPreconditioner.apply semantics exactly (applyGenEOPC,
@@ -98,50 +164,6 @@ class StructuredGenEO:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self.gop.matvec(x)
-
-    # ---------------- level 2: Q = Z E^-1 Z^T (applyQ) ----------------
-    def apply_q(self, x: torch.Tensor) -> torch.Tensor:
-        xb = self._gather(x)
-        n_dom = xb.shape[0]
-        zf = self.z.reshape(n_dom, self.k_max, -1)
-        ztx = torch.bmm(zf, xb.reshape(n_dom, -1, 1)).reshape(-1)
-        # the real coarse columns are numbered in domain order, so the
-        # global coarse vector is the real entries of Z^T x in order
-        w = ztx[self.col_sel]
-        w = self.e_evecs @ (self.e_eig_inv * (self.e_evecs.T @ w))
-        wl = torch.cat([w, w.new_zeros(1)])[self.colids]     # [d, k_max]
-        yb = torch.bmm(wl.unsqueeze(1), zf).reshape(xb.shape)
-        return self._scatter(yb)
-
-    # ---------------- level 1 (applyLevel1) ----------------
-    def _local_solve(self, x: torch.Tensor) -> torch.Tensor:
-        xb = self._gather(x)
-        if self.lvl1 in ("RAS", "SRAS", "ORAS", "SORAS"):
-            xb = xb * self.pou                      # (1.29) of R1
-        ub = self.l1.solve(xb)
-        if self.lvl1 in ("SRAS", "SORAS"):
-            ub = ub * self.pou
-        # pad slots are decoupled in the FDM factor but masking pins them
-        # to exact zeros
-        return self._scatter(ub * self.maskf)
-
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """Full PC apply (applyGenEOPC): Y = Q X + L1(X) with optional
-        hybrid projections — (7.53) of R1."""
-        if self.lvl2 and not self.eff_hybrid:
-            y = self.apply_q(x)
-        else:
-            y = torch.zeros_like(x)
-        t = x
-        if self.hybrid and not self.eff_hybrid:
-            t = t - self.matvec(y)                  # (I - P^T) x
-        t = self._local_solve(t)
-        if self.hybrid:
-            t = t - self.apply_q(self.matvec(t))    # (I - P) t
-        return y + t
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self.apply(x)
 
 
 # ===================== setup =====================

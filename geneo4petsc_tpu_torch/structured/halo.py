@@ -106,3 +106,68 @@ def to_batch(b: torch.Tensor) -> torch.Tensor:
 def from_batch(xb: torch.Tensor, dom_grid) -> torch.Tensor:
     gx, gy, gz = dom_grid
     return xb.reshape((gz, gy, gx) + xb.shape[1:])
+
+
+# ---------------- one rank's z-layers (the rank-split layout) ----------------
+
+def _side(grid_shape, dom_grid, pad):
+    """halo_gather's arguments for pad_z planes beside a rank's layers:
+    one layer of bricks pad_z thick, extended in x and y only."""
+    nx, ny, _nz = grid_shape
+    gx, gy, _gz = dom_grid
+    return (nx, ny, pad[2]), (gx, gy, 1), (pad[0], pad[1], 0)
+
+
+def window_gather(xw: torch.Tensor, grid_shape, dom_grid, pad,
+                  n_layers: int, sides=(True, True)) -> torch.Tensor:
+    """halo_gather of the z-layers of one rank.  ``xw`` [(k,) planes]
+    holds the planes of ``n_layers`` consecutive domain layers and, on
+    each side where ``sides`` says so, pad_z planes beside them (a side
+    without them is the grid's end); returns their boxes [n_layers, gy,
+    gx, (k,) lz, ly, lx] as halo_gather of the whole grid does:
+    halo_gather of the layers, whose outer z-halos are then read from the
+    side planes."""
+    nx, ny, nz = grid_shape
+    gx, gy, gz = dom_grid
+    iz, pz, plane = nz // gz, pad[2], nx * ny
+    lo = pz if sides[0] else 0
+    b = halo_gather(xw.narrow(-1, lo * plane, n_layers * iz * plane),
+                    (nx, ny, n_layers * iz), (gx, gy, n_layers), pad)
+    if pz and any(sides):
+        # b is a fresh tensor here (the z-extension concatenates)
+        laxis, side = 2 + xw.ndim, _side(grid_shape, dom_grid, pad)
+        lz = b.shape[laxis]
+        if sides[0]:
+            b.narrow(0, 0, 1).narrow(laxis, 0, pz).copy_(
+                halo_gather(xw.narrow(-1, 0, pz * plane), *side))
+        if sides[1]:
+            b.narrow(0, n_layers - 1, 1).narrow(laxis, lz - pz, pz).copy_(
+                halo_gather(xw.narrow(-1, (lo + n_layers * iz) * plane,
+                                      pz * plane), *side))
+    return b
+
+
+def window_fold(xl: torch.Tensor, grid_shape, dom_grid, pad,
+                sides=(True, True)) -> torch.Tensor:
+    """Adjoint of window_gather: boxes [n_layers, gy, gx, (k,) lz, ly, lx]
+    -> the planes [(k,) planes] of the layers and, where ``sides`` says
+    so, pad_z planes beside them: halo_scatter_add of the layers (so that
+    on a whole grid it is halo_scatter_add bit for bit), beside the outer
+    z-halos folded in x and y (dropped at the grid's ends)."""
+    nx, ny, nz = grid_shape
+    gx, gy, gz = dom_grid
+    n_layers, pz = xl.shape[0], pad[2]
+    core = halo_scatter_add(xl, (nx, ny, n_layers * nz // gz),
+                            (gx, gy, n_layers), pad)
+    if not (pz and any(sides)):
+        return core
+    laxis, side = xl.ndim - 3, _side(grid_shape, dom_grid, pad)
+    lz = xl.shape[laxis]
+    parts = [core]
+    if sides[0]:
+        parts.insert(0, halo_scatter_add(
+            xl.narrow(0, 0, 1).narrow(laxis, 0, pz), *side))
+    if sides[1]:
+        parts.append(halo_scatter_add(
+            xl.narrow(0, n_layers - 1, 1).narrow(laxis, lz - pz, pz), *side))
+    return torch.cat(parts, dim=-1)

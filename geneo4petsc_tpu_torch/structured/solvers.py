@@ -200,6 +200,9 @@ class PCGSolver:
     rtol: float
     max_it: int
     reduce_dims: tuple = (-3, -2, -1)
+    # the domains of other ranks (krylov.common.DistInner): iterate until
+    # the worst domain of every rank has converged
+    ip: object = None
 
     def solve(self, x: torch.Tensor) -> torch.Tensor:
         m = lo.lift(self.maskf, x)
@@ -216,7 +219,11 @@ class PCGSolver:
         rz = dots(r, p)
         u = torch.zeros_like(b)
         it = 0
-        while it < self.max_it and bool((dots(r, r) > tol2).any()):
+        def busy():
+            b = (dots(r, r) > tol2).any()
+            return bool(b) if self.ip is None else self.ip.any(b)
+
+        while it < self.max_it and busy():
             w = self.st.matvec(p) * m
             pw = dots(p, w)
             alpha = torch.where(pw > 0, rz / torch.clamp(pw, min=1e-30),

@@ -90,9 +90,14 @@ def _decode(node: dict, tensors: dict):
 def save_setup_tree(path: str, pc) -> None:
     """Save a setup product (a dataclass tree of tensors and plain
     values) to ``path``."""
+    import os
+
     tensors = {}
     tree = _encode(pc, tensors)
-    torch.save({"format": _FORMAT, "tree": tree, "tensors": tensors}, path)
+    # written whole, then renamed: a reader never sees a partial file
+    torch.save({"format": _FORMAT, "tree": tree, "tensors": tensors},
+               path + ".part")
+    os.replace(path + ".part", path)
 
 
 def load_setup_tree(path: str, device="cuda"):
@@ -129,7 +134,7 @@ def load_pc(path: str, device="cuda"):
 
 
 def setup_with_checkpoint(setup_fn, grid, dom_grid, overlap, geneo, dtype,
-                          timers, checkpoint_dir, device):
+                          timers, checkpoint_dir, device, ranks=None):
     """Run ``setup_fn()`` -> (pc, stats), or load its product from
     ``checkpoint_dir`` (None: always run it).
 
@@ -137,7 +142,12 @@ def setup_with_checkpoint(setup_fn, grid, dom_grid, overlap, geneo, dtype,
     the coefficient fields; a warm hit skips the eigensolves and E
     entirely and rebuilds the per-domain coarse dimensions from the
     saved column ids (the other statistics read zero, as in the JAX
-    package).  A cold run saves its product for the next one."""
+    package).  A cold run saves its product for the next one.
+
+    ``ranks`` (parallel.multiproc.Ranks): a multi-rank run, whose ranks
+    all run the same replicated setup.  They take a hit only if every
+    rank sees the file; on a miss rank 0 alone writes it, and no rank
+    returns before it is in place."""
     import os
 
     from ..precond.geneo import GenEOStats
@@ -162,7 +172,13 @@ def setup_with_checkpoint(setup_fn, grid, dom_grid, overlap, geneo, dtype,
         cut=geneo.cut, dtype=str(dtype))
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, f"{kind}_{fp}.pt")
-    if os.path.exists(path):
+    hit = os.path.exists(path)
+    if ranks is not None:
+        import torch.distributed as dist
+        flag = torch.tensor([int(hit)], device=ranks.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=ranks.group)
+        hit = bool(flag.item())
+    if hit:
         pc = load_setup_tree(path, device)
         n_dom = int(np.prod(dom_grid))
         stats = GenEOStats(
@@ -176,5 +192,9 @@ def setup_with_checkpoint(setup_fn, grid, dom_grid, overlap, geneo, dtype,
         timers.add("checkpoint_hit", 1.0)
         return pc, stats
     pc, stats = setup_fn()
-    save_setup_tree(path, pc)
+    if ranks is None or ranks.rank == 0:
+        save_setup_tree(path, pc)
+    if ranks is not None:
+        import torch.distributed as dist
+        dist.barrier(group=ranks.group)
     return pc, stats

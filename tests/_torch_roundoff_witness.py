@@ -1,7 +1,6 @@
-"""Witnesses for two parity bands of tests/test_torch_lobpcg_generic.py
-(ROADMAP Queue 3), with JAX on the CPU:
-
-    python tests/_torch_roundoff_witness.py [--quick]
+"""Witnesses for the rounding bands that ROADMAP Queue 3 records (two of
+tests/test_torch_lobpcg_generic.py, one of tests/test_torch_soras_e2_cg.py,
+one of tests/test_torch_cli_multidevice.py), with JAX on the CPU:
 
 1. prune: SORAS,2 with ``-els2_type lobpcg`` and no cut, laplacian
    ``--size S --dim 2 --kappa 1000. minmax``, 4 domains, overlap 1, both
@@ -12,6 +11,21 @@
 2. float32 refinement: ``test_float32_refined_solve_matches_jax`` at
    sizes 16 and 32 with torch's intra-op threads 1, 2, 4 and 8: the
    inner iterations of each package.
+3. soras: SORAS,E2 with ``-els2_type lobpcg`` under CG, laplacian
+   ``--size 32 --dim 2 --kappa 10000. minmax``, 8 domains, overlap 1,
+   rtol 1e-8 (tests/test_torch_soras_e2_cg.py): CG iterations and reason
+   of JAX's PC through JAX's CG and through the port's, and of each
+   package's own PC from the start blocks of keys 0-5, then of keys 0-2
+   with the eigenvectors converged further (400 LOBPCG iterations,
+   tolerance 1e-9).
+4. ranks: the structured STRUCTURED_CONFIGS of
+   tests/test_torch_cli_multidevice.py on 1, 2, 4 and 8 ranks (devices):
+   the float32 inner iterations at the roundoff floor through each
+   package's CLI (``--nbDevices``; JAX on its 8-device CPU mesh), and
+   each package's (inner, outer) counts with a float64 inner CG
+   (solve_structured(dtype=float64, n_devices=...)), where they agree.
+
+    python tests/_torch_roundoff_witness.py [--quick] [prune|float32|soras|ranks]
 
 ``--quick`` compiles the JAX side with ``jax_disable_most_optimizations``
 as the test file does (which changes JAX's start block and arithmetic in
@@ -22,6 +36,10 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
+
+if "host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_force_host_platform_device_count=8")
 
 import jax  # noqa: E402
 
@@ -144,9 +162,135 @@ def float32_refinement() -> None:
                   f"{counts['port']} (band +-3 {held})", flush=True)
 
 
+def soras() -> None:
+    import test_torch_soras_e2_cg as w
+    from geneo4petsc_tpu_torch.utils.convert import pc_from_arrays
+
+    ref_mesh = jax_laplacian.get_input(w.ARGS)
+    ref = jax_assemble(ref_mesh, jax_partition_and_decompose(
+        ref_mesh, 8, add_overlap=1))
+    mesh = laplacian.get_input(w.ARGS)
+    got = assemble(mesh, partition_and_decompose(mesh, 8, add_overlap=1),
+                   CPU)
+    b = np.asarray(ref.a_csr @ np.arange(1.0, mesh.n_nodes + 1))
+    prng = jax.random.PRNGKey
+    for max_it, tol, keys in ((None, None, range(6)), (400, 1e-9, range(3))):
+        for key in keys:
+            def opts(cls):
+                g = w._opts(cls)
+                if max_it:
+                    g.els2.max_it, g.els2.rtol = max_it, tol
+                return g
+
+            jax_lobpcg.jax.random.PRNGKey = lambda _seed: prng(key)
+            jax.clear_caches()
+            try:
+                jpc, _ = jax_geneo.setup_geneo(
+                    ref.batch, opts(JaxGenEOOptions), b=jnp.asarray(b),
+                    decomp=ref.decomp, a_csr=ref.a_csr)
+            finally:
+                jax_lobpcg.jax.random.PRNGKey = prng
+            start = geneo.default_start
+            geneo.default_start = lambda d, n, k, dt: torch.from_numpy(
+                np.array(jax.random.normal(prng(key), (d, n, k),
+                                           jnp.float64))).to(dt)
+            try:
+                pc, _ = geneo.setup_geneo(got.batch, opts(GenEOOptions),
+                                          b=torch.from_numpy(b),
+                                          decomp=got.decomp, a_csr=got.a_csr)
+            finally:
+                geneo.default_start = start
+            r = jax_cg_solve(jpc.batch.matvec, jnp.asarray(b), jpc.apply, x0=jpc.x0,
+                    rtol=1e-8)
+            line = (f"soras key {key}{' converged further' if max_it else ''}"
+                    f": JAX PC / JAX CG {int(r.its)} ({int(r.reason)})")
+            if key == 0 and not max_it:
+                d, meta = _pc_arrays(jpc)
+                conv = pc_from_arrays(d, meta, CPU)
+                rc = cg_solve(conv.batch.matvec, torch.from_numpy(b),
+                              conv.apply, x0=conv.x0, rtol=1e-8)
+                line += f", JAX PC / port CG {rc.its} ({rc.reason})"
+            rp = cg_solve(pc.batch.matvec, torch.from_numpy(b), pc.apply,
+                          x0=pc.x0, rtol=1e-8)
+            print(f"{line}, port PC / port CG {rp.its} ({rp.reason})",
+                  flush=True)
+
+
+def _pc_arrays(jpc):
+    def leaf(a):
+        return None if a is None else np.asarray(a)
+
+    bt, l1 = jpc.batch, jpc.l1_factor
+    d = {"gids": leaf(bt.gids), "mask": leaf(bt.mask), "mult": leaf(bt.mult),
+         "a_neu": leaf(bt.a_neu), "a_dir": leaf(bt.a_dir), "n_dof": bt.n_dof,
+         "l1_factor": tuple(map(leaf, l1)) if isinstance(l1, tuple)
+         else leaf(l1), "pou": leaf(jpc.pou), "z_loc": leaf(jpc.z_loc),
+         "colids": leaf(jpc.colids), "e_evecs": leaf(jpc.e_evecs),
+         "e_eig_inv": leaf(jpc.e_eig_inv), "x0": leaf(jpc.x0)}
+    return d, {k: getattr(jpc, k) for k in ("lvl1", "lvl2", "hybrid",
+                                            "eff_hybrid", "dim_e", "k_max",
+                                            "l1_kind")}
+
+
+def ranks() -> None:
+    import io
+    import re
+
+    from geneo4petsc_tpu import cli as jax_cli
+    from geneo4petsc_tpu.config import KSPOptions as JaxKSPOptions
+    from geneo4petsc_tpu.structured import grid as jax_grid
+    from geneo4petsc_tpu.structured.solve import \
+        solve_structured as jax_solve
+    from geneo4petsc_tpu_torch import cli
+    from geneo4petsc_tpu_torch.config import KSPOptions
+    from geneo4petsc_tpu_torch.structured import grid as tgrid
+    from geneo4petsc_tpu_torch.structured.solve import solve_structured
+    import test_torch_cli_multidevice as m
+
+    def its(run, args):
+        buf = io.StringIO()
+        run(args, out=buf)
+        got = re.search(r"(\d+) iteration\(s\)", buf.getvalue())
+        return got.group(1) if got else buf.getvalue()
+
+    for wl, lvl, _ndev, _band in m.STRUCTURED_CONFIGS:
+        args = ["--inpLibA", wl, "--inpLibArg",
+                "--size 16#--dim 3#--kappa 100. minmax", "--structured",
+                "2,2,2", "--addOverlap", "1", "-pc_type", "geneo",
+                "-geneo_lvl", lvl, "-ksp_type", "cg", "-ksp_rtol", "1e-8"]
+        for n in (1, 2, 4, 8):
+            dev = ["--nbDevices", str(n)]
+            f32 = (its(cli.run, args + ["--device", "cpu"] + dev),
+                   its(jax_cli.run, args + dev))
+            f64 = []
+            for solve, grids, opts, ksp, dtype, kw in (
+                    (solve_structured, tgrid, GenEOOptions, KSPOptions,
+                     torch.float64, {"device": "cpu"}),
+                    (jax_solve, jax_grid, JaxGenEOOptions, JaxKSPOptions,
+                     jnp.float64, {})):
+                g = opts()
+                g.lvl1, g.lvl2 = lvl.split(",")
+                out = solve(getattr(grids, f"{wl}_grid")(
+                    16, dim=3, kappa_max=100.0, interp="minmax"), (2, 2, 2),
+                    1, geneo=g, ksp=ksp(type="cg", rtol=1e-8), dtype=dtype,
+                    n_devices=n, **kw)
+                f64.append((out.refined.inner_its, out.refined.outer_its))
+            print(f"ranks {wl} {lvl} on {n}: float32 inner port {f32[0]}, "
+                  f"JAX {f32[1]}; float64 (inner, outer) port {f64[0]}, "
+                  f"JAX {f64[1]}", flush=True)
+
+
 if __name__ == "__main__":
-    for key in range(4):
-        prune(16, key)
-    for size in (12, 20, 24):
-        prune(size, 0)
-    float32_refinement()
+    which = [a for a in sys.argv[1:] if not a.startswith("--")] or [
+        "prune", "float32", "soras", "ranks"]
+    if "prune" in which:
+        for key in range(4):
+            prune(16, key)
+        for size in (12, 20, 24):
+            prune(size, 0)
+    if "float32" in which:
+        float32_refinement()
+    if "soras" in which:
+        soras()
+    if "ranks" in which:
+        ranks()

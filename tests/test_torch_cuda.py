@@ -446,3 +446,57 @@ def test_api_solve_on_cuda_matches_cpu(cuda):
     assert (r.its, r.reason) == (r_cpu.its, r_cpu.reason) and r.reason > 0
     np.testing.assert_allclose(r.x.cpu().numpy(), r_cpu.x.numpy(),
                                rtol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_block_layout_equals_global_on_cuda(cuda, dtype):
+    """structured/blockmode.py: the block-major operators equal the
+    global-layout ones bit for bit on the card too."""
+    from geneo4petsc_tpu_torch.structured.blockmode import build_block_mode
+    from geneo4petsc_tpu_torch.structured.decompose import \
+        StructuredDecomposition
+    from geneo4petsc_tpu_torch.structured.geneo import setup_structured
+    from geneo4petsc_tpu_torch.structured.grid import laplacian_grid
+    grid = laplacian_grid(16, dim=3, kappa_max=1e4, interp="minmax")
+    sd = StructuredDecomposition(grid, (2, 2, 2), 2)
+    opts = GenEOOptions()
+    opts.lvl1, opts.lvl2, opts.cut = "RAS", "H1", 2
+    pc, _ = setup_structured(sd, opts, dtype=dtype, device=cuda)
+    blk = build_block_mode(pc, sd, dtype, cuda)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        grid.n_nodes)).to(cuda, dtype)
+    xb = blk.to_block(x)
+    assert torch.equal(blk.from_block(blk.matvec(xb)), pc.matvec(x))
+    assert torch.equal(blk.from_block(blk.apply(xb)), pc.apply(x))
+
+
+def test_nccl_world_one_dist_apply_equals_single(cuda):
+    """A world-size-1 NCCL group: dist_geneo's apply and matvec (K1/K2 on
+    the rank's chunk) equal the single-device ones, and CG takes the same
+    iterations."""
+    from geneo4petsc_tpu_torch.parallel import multiproc, probes
+    got = multiproc.run_ranks(probes.batch, 1, args=([(
+        "generic", ("--size 24 --dim 2 --kappa 1000. minmax", 8, 1,
+                    ["ASM,H1"]), {"device": "cuda"})],), device="cuda",
+        timeout=600)[0]["ASM,H1"]
+    assert _rel(torch.from_numpy(got["apply"]),
+                torch.from_numpy(got["apply_1"])) <= 1e-12
+    assert _rel(torch.from_numpy(got["matvec"]),
+                torch.from_numpy(got["matvec_1"])) <= 1e-12
+    assert got["its"] == got["its_1"]
+
+
+def test_nbdevices_beyond_the_cards_exits_1(cuda, capsys):
+    """--nbDevices D --device cuda with fewer than D cards: exit 1 naming
+    the card count, and no run on the CPU."""
+    from geneo4petsc_tpu_torch import cli
+    n = torch.cuda.device_count() + 1
+    rc = cli.run(["--inpLibA", "laplacian", "--inpLibArg",
+                  "--size#12#--dim#2", "--nbPart", "4", "-pc_type", "geneo",
+                  "-geneo_lvl", "ASM,1", "--nbDevices", str(n),
+                  "--device", "cuda"])
+    err = capsys.readouterr()
+    assert rc == 1
+    assert f"has {torch.cuda.device_count()}" in err.err
+    assert "INFO: solve" not in err.out

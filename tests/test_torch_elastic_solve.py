@@ -117,11 +117,17 @@ def test_elastic_cli_info_lines_match_jax(tmp_path, monkeypatch):
 
 
 def test_elastic_cli_refuses_gmres_and_devices():
+    """GMRES is refused (the level-1 solves are inexact); --nbDevices,
+    ported since, runs the elastic backend on 2 ranks, and a rank count
+    the mesh cannot split is refused before any rank starts."""
     buf = io.StringIO()
     assert cli.run(ELASTIC_ARGS[:-4] + ["-ksp_type", "gmres", "--device",
                                         "cpu"], out=buf) == 1
+    buf = io.StringIO()
     assert cli.run(ELASTIC_ARGS + ["--nbDevices", "2", "--device", "cpu"],
-                   out=buf) == 1
+                   out=buf) == 0
+    assert "nb devices 2" in buf.getvalue()
+    assert "INFO: solve - converged (refined" in buf.getvalue()
     g = el.elastic_grid(4)
-    with pytest.raises(ValueError, match="item 19"):
-        el.solve_elastic(g, (2, 1, 1), 1, device=CPU, n_devices=2)
+    with pytest.raises(ValueError, match="must divide the mesh size 3"):
+        el.solve_elastic(g, (2, 1, 1), 1, device=CPU, n_devices=3)

@@ -89,10 +89,17 @@ assert not bad, bad
 @pytest.mark.parametrize("module", [
     "geneo4petsc_tpu_torch.structured.elastic", "geneo4petsc_tpu_torch.api",
     "geneo4petsc_tpu_torch.utils.check", "geneo4petsc_tpu_torch.utils.debug",
-    "geneo4petsc_tpu_torch.utils.checkpoint"])
+    "geneo4petsc_tpu_torch.utils.checkpoint",
+    "geneo4petsc_tpu_torch.structured.blockmode",
+    "geneo4petsc_tpu_torch.structured.sharded",
+    "geneo4petsc_tpu_torch.parallel.multiproc",
+    "geneo4petsc_tpu_torch.parallel.sharded",
+    "geneo4petsc_tpu_torch.parallel.dist",
+    "geneo4petsc_tpu_torch.parallel.probes"])
 def test_new_module_imports_alone_with_jax_blocked(module):
-    """Each module of the elastic backend and of the library surface
-    imports on its own in a process where JAX cannot be imported."""
+    """Each module of the elastic backend, the library surface, the block
+    layout and the multi-rank layouts imports on its own in a process
+    where JAX cannot be imported."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300, check=False,
