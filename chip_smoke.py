@@ -5,7 +5,8 @@
 Phases, one line or block of output each; any failure ends the script
 with a non-zero exit code and no result line:
 
-1. device   — the card's name and power limit (nvidia-smi); TF32 off.
+1. device   — the card's name and power limit (nvidia-smi), its row of
+              the peaks table (utils/roofline.py); TF32 off.
 2. build    — compile the CUDA kernels of geneo4petsc_tpu_torch/csrc/
               (nvcc, sm_90a) and the native partitioner (native/kway.cpp).
 3. kernels  — each kernel against its plain PyTorch version on the card,
@@ -73,7 +74,7 @@ with a non-zero exit code and no result line:
               timed in turns with torch.bmm (the library call for the
               same product, which the port never calls on the card) and
               with its plain version by CUDA events, beside its bound
-              from the bytes and operations.
+              from the bytes and operations (roofline.bound_ms).
 
 11. api     — the library entry point (api.make_batch, geneo_setup,
               geneo_solve: the PCGenEOSetup twin) on the JAX package's
@@ -135,14 +136,26 @@ with a non-zero exit code and no result line:
               1), and again with a float64 inner CG through the library,
               equal to JAX's float64 counts (MULTI_FLOAT64);
               true residuals <= 1e-8.
+20. roofline — right after phase 15, on its two solves:
+              roofline.measure_structured on the global layout's
+              preconditioner and on the block layout's (blk=), with the
+              tau pencil of the setup (one LOBPCG step), each solve's
+              solve seconds and inner iterations, and a 60 s budget;
+              prints the card's line and one JSON line per layout.  Fails
+              when the card has no row in the peaks table, when an entry
+              was skipped, or when a share of a peak reads over 1.05.
+              Then checks that geneo4petsc_tpu_torch/perf/
+              coarse_scaling.json (the coarse replication wall) is there,
+              names an NVIDIA card and gives the wall the package reads.
 
 Phase path-shapes runs last, over the shapes of phases 5, 8, 9, 11, 12
 and 17.
 
-It then prints one JSON line with every kernel's launches (the sum over
-the phases that drive a main path, and each phase's count), and its
-error, path, times and bound at the slice's shape and, under "shapes",
-at every shape of phase 10; and last the result line
+It then prints its wall seconds, one JSON line with every kernel's
+launches (the sum over the phases that drive a main path, and each
+phase's count), and its error, path, times and bound at the slice's
+shape and, under "shapes", at every shape of phase 10; and last the
+result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -152,7 +165,6 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -188,10 +200,6 @@ KERNEL_CASES = [
     ((1024, 320), "float32", True, "ring"),     # large's shape
     ((64, 448), "float64", True, "ring"),       # generic-family's lobpcg
 ]
-# Published peaks of the H100 SXM (NVIDIA's data sheet): device memory
-# rate, and float64 / float32 rates outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 
 # structured-parity: the JAX package's values on the CPU (float64), from
 #   python -c "import jax; jax.config.update('jax_enable_x64', True)
@@ -272,6 +280,9 @@ ELASTIC_DOF = 10535424          # 3 * 152^3
 # through the library (its CLI arguments, as solve_structured options)
 TEN_M_GRID = dict(size=216, dim=3, kappa_max=1e4, interp="minmax")
 TEN_M_DOMS, TEN_M_OVERLAP = (4, 4, 4), 2
+# roofline: the measurement's wall, and the most a share of a peak may
+# read (above 1 the model left out work or the timing window ended early)
+ROOFLINE_BUDGET_S, ROOFLINE_MAX_SHARE = 60.0, 1.05
 # multi-rank-cpu: the JAX package's --nbDevices counts on the CPU
 # (float64, 8 virtual devices), from its CLI with the arguments of
 # tests/test_cli_multidevice.py:
@@ -373,21 +384,32 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def phase_device() -> str:
+def _peaks() -> dict:
+    from geneo4petsc_tpu_torch.utils import roofline
+
+    peaks = roofline.device_peaks()
+    check(peaks is not None, "the card has no row in the peaks table "
+                             "(utils/roofline.py)")
+    return peaks
+
+
+def phase_device() -> None:
     import torch
+
+    from geneo4petsc_tpu_torch.utils import roofline
 
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(roofline.smi_line(), flush=True)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"cards {torch.cuda.device_count()}", flush=True)
-    return smi
+    peaks = _peaks()
+    print(f"[device] peaks ({peaks['source']}): memory "
+          f"{peaks['hbm_bytes_per_s']:.3g} B/s, " + ", ".join(
+              f"{k} {v:.3g} FLOP/s" for k, v in peaks["flops"].items()),
+          flush=True)
 
 
 def phase_build() -> None:
@@ -430,18 +452,35 @@ def _kernel_inputs(n_dom, n, dtype, aligned, rng, dev):
 
 
 def _kernel_runs(lk, inv, d, mask, x):
-    """(name, variant, kernel call, plain call, bytes of mask and weights)
+    """(name, variant, kernel call, plain call, whether it reads weights)
     of each kernel variant on one case's inputs."""
     runs = [("fused_local_solve", f"pre={pre} post={post}",
              lambda pre=pre, post=post: lk.fused_local_solve(
                  inv, d, mask, x, pre, post),
              lambda pre=pre, post=post: lk.fused_local_solve_plain(
                  inv, d, mask, x, pre, post),
-             mask.numel() + (pre or post) * d.numel() * d.element_size())
+             pre or post)
             for pre, post in ((False, False), (True, False), (True, True))]
     runs.append(("block_matvec", "", lambda: lk.block_matvec(inv, x),
-                 lambda: lk.block_matvec_plain(inv, x), 0))
+                 lambda: lk.block_matvec_plain(inv, x), False))
     return runs
+
+
+def kernel_bound(name: str, n_dom: int, n: int, dtype_name: str,
+                 weights: bool, peaks: dict) -> tuple[int, float, str]:
+    """(bytes, bound ms, bound by) of one call of kernel ``name`` on a
+    [n_dom, n, n] batch: every input read once (the matrices and x; K1
+    also its mask, a byte an entry, and with weights D), the output
+    written once; 2 n^2 operations a domain."""
+    from geneo4petsc_tpu_torch.utils import roofline
+
+    isz = 8 if dtype_name == "float64" else 4
+    moved = (n_dom * n * n + 2 * n_dom * n) * isz
+    if name == "fused_local_solve":
+        moved += n_dom * n * (1 + weights * isz)
+    bound, by = roofline.bound_ms(moved, 2 * n_dom * n * n, dtype_name,
+                                  peaks)
+    return moved, bound, by
 
 
 def _hold(name, variant, kern, plain, where, tol) -> tuple[float, float]:
@@ -508,6 +547,7 @@ def phase_path_shapes(seen: list) -> dict:
                     name, set()).add(phase)
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
+    peaks = _peaks()
     rows = {"fused_local_solve": [], "block_matvec": []}
     for (n_dom, n, dtype_name), kernels in sorted(
             shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1] ** 2):
@@ -520,19 +560,15 @@ def phase_path_shapes(seen: list) -> dict:
         def lib():
             return torch.bmm(inv, x.unsqueeze(-1))
 
-        for name, variant, kern, plain, vector_bytes in _kernel_runs(
+        for name, variant, kern, plain, weights in _kernel_runs(
                 lk, inv, d, mask, x):
             # the main paths run ASM: K1 without weights
             if name not in kernels or variant not in (
                     "", "pre=False post=False"):
                 continue
             abs_err, rel_err = _hold(name, variant, kern, plain, where, tol)
-            # every input read once, the output written once
-            moved = ((inv.numel() + 2 * x.numel()) * inv.element_size()
-                     + vector_bytes)
-            by_bytes = moved / PEAK_BYTES_PER_S * 1e3
-            by_ops = 2 * inv.numel() / PEAK_FLOPS[dtype_name] * 1e3
-            bound_ms = max(by_bytes, by_ops)
+            moved, bound_ms, bound_by = kernel_bound(
+                name, n_dom, n, dtype_name, weights, peaks)
             # in turns: library, kernel, kernel, library
             b, k = time_in_turns(lib, kern)
             _, p = time_in_turns(lib, plain, rounds=3)
@@ -551,8 +587,7 @@ def phase_path_shapes(seen: list) -> dict:
                 phases=phases, shape=[n_dom, n, n], dtype=dtype_name,
                 path=path, max_abs_err=abs_err, ms=k["ms"],
                 ms_min=k["min_ms"], ms_max=k["max_ms"], library_ms=b["ms"],
-                plain_ms=p["ms"], bound_ms=bound_ms,
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                plain_ms=p["ms"], bound_ms=bound_ms, bound_by=bound_by,
                 share_of_bound=share))
         del inv, d, mask, x
         torch.cuda.empty_cache()
@@ -1294,7 +1329,7 @@ def phase_block_layout() -> dict:
     outer passes within 1, true residual <= 1e-8
     (tests/test_blockmode.py's contracts); TIME: total and the mean inner
     iteration by CUDA events of each run.  Returns each layout's second
-    run."""
+    run, with its output and grid (phase roofline measures them)."""
     import torch
 
     from geneo4petsc_tpu_torch.ops import local_kernels as lk
@@ -1304,8 +1339,9 @@ def phase_block_layout() -> dict:
     for name in ("global", "block", "block", "global"):
         torch.cuda.empty_cache()
         lk.fused_local_solve.launches = lk.block_matvec.launches = 0
+        got.pop(name, None)     # free this layout's earlier solve first
         got[name] = r = probes.timed_structured(
-            *_ten_m_opts(), block_layout=name == "block")
+            *_ten_m_opts(), block_layout=name == "block", keep=True)
         print(f"[block-layout] {name} layout: {r['inner']} inner / "
               f"{r['outer']} outer, dim_e {r['dim_e']}, true_res "
               f"{r['true_res']:.3e}, max |x - x_true| / n "
@@ -1325,6 +1361,72 @@ def phase_block_layout() -> dict:
     check(abs(b["outer"] - g["outer"]) <= 1,
           f"block-layout outer {b['outer']} vs {g['outer']}")
     return got
+
+
+def phase_roofline(layouts: dict) -> None:
+    """roofline.measure_structured on phase 15's two solves of the 10M
+    case: the global layout's preconditioner, and the block layout's
+    (blk=), with the setup's tau pencil, each solve's seconds and inner
+    iterations, and a budget; nothing skipped and no share of a peak
+    over ROOFLINE_MAX_SHARE.  Then the coarse replication wall's file."""
+    import torch
+
+    from geneo4petsc_tpu_torch.config import GenEOOptions
+    from geneo4petsc_tpu_torch.precond import geneo as pgeneo
+    from geneo4petsc_tpu_torch.structured.blockmode import build_block_mode
+    from geneo4petsc_tpu_torch.structured.decompose import (
+        StructuredDecomposition)
+    from geneo4petsc_tpu_torch.utils import roofline
+
+    peaks = _peaks()
+    print(roofline.smi_line(), flush=True)
+    g, b = layouts["global"], layouts["block"]
+    _grid, doms, overlap, _lvl, _its, cut = _ten_m_opts()
+    sd = StructuredDecomposition(g["grid"], doms, overlap)
+    dev = g["out"].pc.maskf.device
+    # the setup's default tau (the 10M case sets none)
+    pencils = roofline.tau_pencils(sd, GenEOOptions().tau, cut,
+                                   torch.float32, dev)
+    blk = build_block_mode(b["out"].pc, sd, torch.float32, dev)
+    for name, r, block in (("global", g, None), ("block", b, blk)):
+        t0 = time.perf_counter()
+        rec = roofline.measure_structured(
+            r["out"].pc, pencils=pencils, solve_s=r["phases"]["solve"],
+            inner_its=r["inner"], budget_s=ROOFLINE_BUDGET_S, blk=block)
+        wall = time.perf_counter() - t0
+        print(json.dumps({"roofline": name, "measure_s": wall, **rec}),
+              flush=True)
+        check(rec.get("device_kind") == peaks["kind"]
+              and "hbm_peak_gbps" in rec,
+              f"roofline {name}: no peaks in the record")
+        check("skipped" not in rec, f"roofline {name}: skipped "
+                                    f"{rec.get('skipped')} within "
+                                    f"{ROOFLINE_BUDGET_S} s")
+        want = {"stencil_matvec", "fdm_apply", "pc_apply", "lobpcg_step",
+                "solve_phase"}
+        check(want <= set(rec), f"roofline {name}: missing "
+                                f"{sorted(want - set(rec))}")
+        for entry, e in rec.items():
+            for key, share in (e.items() if isinstance(e, dict) else ()):
+                if key.startswith("frac_of_"):
+                    check(0.0 < share <= ROOFLINE_MAX_SHARE,
+                          f"roofline {name}: {entry} {key} {share}")
+    del pencils, blk
+    torch.cuda.empty_cache()
+
+    check(os.path.exists(pgeneo.COARSE_SCALING),
+          f"{pgeneo.COARSE_SCALING} is missing")
+    with open(pgeneo.COARSE_SCALING) as f:
+        rec = json.load(f)
+    wall = pgeneo.coarse_replication_wall()
+    host = rec["host"]
+    print(f"[roofline] coarse replication wall dim_e {wall} "
+          f"({os.path.relpath(pgeneo.COARSE_SCALING, HERE)}: {rec['card']},"
+          f" {rec['power_limit']}; host {host['cpu_model']}, "
+          f"{host['threads']} threads; dims "
+          f"{[r['dim_e'] for r in rec['rows']]})", flush=True)
+    check("NVIDIA" in rec["card"] and wall == rec["replication_wall_dim_e"],
+          f"coarse_scaling.json: card {rec['card']}, wall {wall}")
 
 
 def phase_nccl_structured(single: dict) -> dict:
@@ -1540,6 +1642,7 @@ def main() -> int:
               "script; run it from the repository root", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     phase_kernels()
@@ -1556,6 +1659,9 @@ def main() -> int:
     phase_elastic_parity()
     phase_elastic()
     layouts = phase_block_layout()
+    phase_roofline(layouts)
+    for r in layouts.values():
+        del r["out"], r["grid"]
     phase_nccl_structured(layouts["global"])
     by_phase["nccl-generic"], nccl_shapes = phase_nccl_generic()
     phase_nccl_elastic()
@@ -1585,6 +1691,8 @@ def main() -> int:
                      **{k: v for k, v in at_slice.items()
                         if k not in ("phases", "shape", "dtype")},
                      "shapes": at_shapes[name]})
+    print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+          "included", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

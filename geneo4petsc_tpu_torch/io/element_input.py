@@ -166,3 +166,12 @@ def read_rhs_file(path: str, n_dof: int) -> np.ndarray:
 def manufactured_solution(n_dof: int) -> np.ndarray:
     """X = (1, 2, 3, ...) so that B = A X has a known solution."""
     return np.arange(1, n_dof + 1, dtype=np.float64)
+
+
+def write_input_file(mesh: ElementMesh, path: str) -> None:
+    """Write an ElementMesh in the reference text format."""
+    with open(path, "w") as f:
+        for e in range(mesh.n_elems):
+            dofs = " ".join(str(d) for d in mesh.elem_nodes(e))
+            mat = " ".join(repr(float(v)) for v in mesh.elem_mats[e].ravel())
+            f.write(f"{dofs} - {mat}\n")

@@ -198,11 +198,12 @@ def batch(calls: list) -> list:
 
 def timed_structured(grid_kw: dict, dom_grid, overlap: int, lvl: str,
                      eig_max_it: int, cut: int, block_layout=False,
-                     n_devices=None, device="cuda") -> dict:
+                     n_devices=None, device="cuda", keep=False) -> dict:
     """One structured solve (float32 inner CG in float64 refinement to
     1e-8) with each inner solve timed by CUDA events: its counts, coarse
     dimension, true residual, wall seconds, phase seconds and the mean
-    time of an inner iteration."""
+    time of an inner iteration; with ``keep`` also the solve's output
+    (``out``, its preconditioner on the card) and the grid (``grid``)."""
     from ..config import KSPOptions
     from ..structured import solve as ssolve
     from ..structured.grid import laplacian_grid
@@ -241,7 +242,9 @@ def timed_structured(grid_kw: dict, dom_grid, overlap: int, lvl: str,
     wall = time.perf_counter() - t0
     inner_ms = sum(s.elapsed_time(e) for s, e in spans)
     x = np.asarray(out.x, np.float64)
-    return {"inner": out.refined.inner_its, "outer": out.refined.outer_its,
+    kept = {"out": out, "grid": grid} if keep else {}
+    return {**kept,
+            "inner": out.refined.inner_its, "outer": out.refined.outer_its,
             "dim_e": int(out.stats.real_dim_e.sum()),
             "true_res": float(out.true_res), "wall_s": wall,
             "phases": dict(out.timers.phases), "inner_ms": inner_ms,

@@ -16,8 +16,8 @@ rtol 0.05 at most 40 iterations), then
    float64 global operator) ``--solves`` times: ms per inner iteration;
 3. times single calls with CUDA events, each beside its bound — the
    bytes it must move (each input read once, each output written once)
-   over 3.35 TB/s or its operations over the float32 / float64 peak
-   (67 / 34 TFLOP/s), whichever is larger: the global cell sum (float64
+   or its operations, whichever bounds it (roofline.bound_ms): the
+   global cell sum (float64
    and float32), the dilated Dirichlet cell sum of one vector and of the
    LOBPCG block (3k columns, float64, on one domain chunk of
    setup_elastic's byte budget), the halo gather and scatter of a
@@ -42,7 +42,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import statistics
-import subprocess
 import sys
 import time
 
@@ -52,19 +51,11 @@ import torch
 from ..config import GenEOOptions
 from ..ops.lobpcg import default_start, matfree_lobpcg
 from ..structured import elastic as el
+from ..utils import roofline
 from ..utils.cuda_timing import time_ms
 from ..utils.timers import Timers
 
-PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 CELL_FLOPS = 2 * 24 * 24 + 2 * 24   # K0 product, weight, corner adds
-
-
-def _bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
-    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
 
 
 def _options() -> GenEOOptions:
@@ -117,13 +108,12 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
     if on_card:
-        if not torch.cuda.is_available():
-            print("elastic_profile: no CUDA device", file=sys.stderr)
+        peaks = roofline.device_peaks(dev)
+        if peaks is None:
+            print("elastic_profile: no CUDA card the peaks table knows",
+                  file=sys.stderr)
             return 1
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0], flush=True)
+        print(roofline.smi_line(), flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def sync():
@@ -239,7 +229,7 @@ def main(argv=None) -> int:
         for _ in range(2):
             fn()
         ts = [time_ms(fn, 3) for _ in range(5)]
-        bound, by = _bound_ms(n_bytes, flops, dtype)
+        bound, by = roofline.bound_ms(n_bytes, flops, dtype, peaks)
         med = statistics.median(ts)
         print(f"[call] {name}: {med:.4f} ms [{min(ts):.4f}, {max(ts):.4f}]"
               f"; bound {bound:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB, "
@@ -282,7 +272,8 @@ def main(argv=None) -> int:
     lob_bytes = (4 * kc + 10) * loc_c * f8
     lob_flops = (4 * kc * CELL_FLOPS * dil_cells * chunk
                  + 4 * lsq * opts.cut * loc_c + 8 * kc * kc * loc_c)
-    bound, by = _bound_ms(lob_bytes, lob_flops, torch.float64)
+    bound, by = roofline.bound_ms(lob_bytes, lob_flops, torch.float64,
+                                  peaks)
     print(f"[call] LOBPCG iteration (float64, k={opts.cut}, one chunk of "
           f"{chunk} domains): "
           f"{step:.4f} ms (6 iterations {statistics.median(runs[6]):.3f} "

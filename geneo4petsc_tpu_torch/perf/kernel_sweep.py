@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import argparse
 import re
-import subprocess
 import sys
 
 import numpy as np
@@ -46,6 +45,7 @@ import torch
 
 from ..ops import _build
 from ..ops import local_kernels as lk
+from ..utils import roofline
 from ..utils.cuda_timing import time_in_turns
 
 MAIN = (1024, 496)
@@ -58,7 +58,6 @@ CHECK_SHAPES = [((1024, 496), torch.float64), ((3, 37), torch.float64),
                 ((133, 496), torch.float64), ((2, 3000), torch.float64),
                 ((1, 1), torch.float64), ((300, 16), torch.float64)]
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 
 def _data(n_dom, n, dtype, seed=0):
@@ -140,7 +139,9 @@ def sweep() -> None:
     inv, d, mask, x = _data(n_dom, n, torch.float64)
     sms, _ = lk._device_limits(torch.cuda.current_device())
     moved = (inv.numel() + 2 * x.numel()) * inv.element_size()
-    bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = roofline.bound_ms(moved, 2 * inv.numel(),
+                                           torch.float64,
+                                           roofline.device_peaks())
     plans = [lk.plan_for(inv)]
     plans += [_ring(n_dom, n, 8, *v, sms) for v in (
         (8, 7, 96, 1), (8, 2, 96, 1), (4, 8, 64, 1), (16, 3, 160, 1),
@@ -152,7 +153,8 @@ def sweep() -> None:
         return torch.bmm(inv, x.unsqueeze(-1))
 
     print(f"[sweep] K2 [{n_dom},{n},{n}] float64, bound {bound_ms:.4f} ms "
-          f"({moved} B at {PEAK_BYTES_PER_S:.3g} B/s)", flush=True)
+          f"by {bound_by} ({moved} B, {2 * inv.numel()} operations)",
+          flush=True)
     for plan in plans:
         want = lk.block_matvec_plain(inv, x)
         err = _rel(lk._block_matvec_cuda(inv, x, plan), want)
@@ -288,13 +290,11 @@ def main(argv=None) -> int:
     ap.add_argument("--small-only", action="store_true")
     ap.add_argument("--parent", metavar="DIR")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("kernel_sweep: no CUDA device", file=sys.stderr)
+    if roofline.device_peaks() is None:
+        print("kernel_sweep: no CUDA card the peaks table knows",
+              file=sys.stderr)
         return 1
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0], flush=True)
+    print(roofline.smi_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     report_build()
     if not check():

@@ -16,9 +16,10 @@ with LOBPCG cut 2, 50 iterations; float32 preconditioner), then
    LocalStencil.matvec (one vector and the LOBPCG block of 3k), the
    global stencil, FDMFactor.solve, apply_q, the preconditioner apply
    and one LOBPCG iteration of the tau pencil — each beside its bound:
-   the bytes it must move (each input read once, each output written
-   once) over 3.35 TB/s, and for the FDM solve and the LOBPCG step also
-   its float32 operations over 67 TFLOP/s, whichever is larger;
+   roofline.bound_ms of the bytes it must move (each input read once,
+   each output written once) and its float32 operations (the models of
+   the matvec, the FDM solve, the apply and the LOBPCG step are
+   utils/roofline.py's, which measure_structured uses);
 4. traces one inner solve with torch.profiler: kernel time by name,
    kernel launches per iteration, and the card's busy and idle share.
 
@@ -31,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import statistics
-import subprocess
 import sys
 import time
 
@@ -39,25 +39,14 @@ import numpy as np
 import torch
 
 from ..config import GenEOOptions
-from ..ops.lobpcg import default_start, matfree_lobpcg
-from ..structured import fdm, halo, solvers
-from ..structured import local_ops as lo
+from ..structured import fdm, halo
 from ..structured.decompose import StructuredDecomposition
-from ..structured.geneo import _block_ops, setup_structured
+from ..structured.geneo import setup_structured
 from ..structured.grid import global_stencil, laplacian_grid
 from ..structured.solve import make_structured_inner
+from ..utils import roofline
 from ..utils.cuda_timing import time_ms
 from ..utils.timers import Timers
-
-PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
-PEAK_F32_FLOPS = 67e12         # float32 outside the tensor cores
-
-
-def _bound_ms(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
-    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
 
 
 def main(argv=None) -> int:
@@ -71,13 +60,12 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
     if on_card:
-        if not torch.cuda.is_available():
-            print("structured_profile: no CUDA device", file=sys.stderr)
+        peaks = roofline.device_peaks(dev)
+        if peaks is None:
+            print("structured_profile: no CUDA card the peaks table knows",
+                  file=sys.stderr)
             return 1
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0], flush=True)
+        print(roofline.smi_line(), flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def sync():
@@ -153,18 +141,9 @@ def main(argv=None) -> int:
     xb = halo.to_batch(halo.halo_gather(x, pc.grid_shape, pc.dom_grid,
                                         pc.pad))
     yb = xb.clone()
-    pad1 = tuple(p + 1 if g > 1 else 0 for p, g in zip(sd.pad, sd.dom_grid))
-    f = lo.slice_inner(lo.gather_fields(sd, torch.float32, pad=pad1,
-                                        device=dev), sd)
-    neu = lo.neumann_stencil(f)
-    maskf = f.mask.float()
-    pou = torch.where(f.mask, 1.0 / f.mult.clamp(min=1.0),
-                      torch.zeros_like(f.mult))
-    b_dad = solvers.diag_congruence(lo.dirichlet_stencil(f), pou)
-    t1 = fdm.fdm_factor(fdm.neumann_axes(sd), shift=opts.tau, device=dev)
-    kc = max(opts.cut, 1)
-    blk = torch.randn((n_dom, 3 * kc) + tuple(f.diag.shape[1:]),
-                      device=dev)
+    neu, b_dad, maskf, t1, kc = roofline.tau_pencils(
+        sd, opts.tau, opts.cut, torch.float32, dev)
+    blk = torch.randn((n_dom, 3 * kc) + tuple(maskf.shape[1:]), device=dev)
     loc = n_dom * n_loc
     lsq = sum(sd.local_shape)
     calls = [
@@ -173,25 +152,24 @@ def main(argv=None) -> int:
         ("halo_scatter_add", lambda: halo.halo_scatter_add(
             halo.from_batch(yb, pc.dom_grid), pc.grid_shape, pc.dom_grid,
             pc.pad), (n + loc) * f4, 0.0),
-        ("GlobalStencil.matvec", lambda: pc.gop.matvec(x), 6 * n * f4,
-         7 * 2 * n),
+        ("GlobalStencil.matvec", lambda: pc.gop.matvec(x),
+         *roofline.stencil_model(n, f4)),
         ("LocalStencil.matvec", lambda: neu.matvec(xb), 6 * loc * f4,
          7 * 2 * loc),
         (f"LocalStencil.matvec [d,{3 * kc},...]", lambda: neu.matvec(blk),
          (4 + 2 * 3 * kc) * loc * f4, 7 * 2 * loc * 3 * kc),
-        ("FDMFactor.solve", lambda: pc.l1.solve(xb), 3 * loc * f4,
-         2 * 2 * lsq * loc),
+        ("FDMFactor.solve", lambda: pc.l1.solve(xb),
+         *roofline.fdm_model(loc, lsq, f4)),
         ("apply_q", lambda: pc.apply_q(x), (2 * n + k * loc) * f4,
          4 * k * loc),
         ("pc.apply", lambda: pc.apply(x),
-         (2 * n + 4 * n + (2 + k) * loc) * f4,
-         2 * 2 * lsq * loc + 4 * k * loc + 14 * n),
+         *roofline.pc_apply_model(pc, n, loc, lsq, f4)),
     ]
     for name, fn, n_bytes, flops in calls:
         for _ in range(3):
             fn()
         ts = [time_ms(fn, 10) for _ in range(5)]
-        bound, by = _bound_ms(n_bytes, flops)
+        bound, by = roofline.bound_ms(n_bytes, flops, torch.float32, peaks)
         med = statistics.median(ts)
         print(f"[call] {name}: {med:.4f} ms [{min(ts):.4f}, {max(ts):.4f}]"
               f"; bound {bound:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB, "
@@ -199,28 +177,12 @@ def main(argv=None) -> int:
               f"{bound / med:.3f}", flush=True)
 
     # one LOBPCG iteration of the tau pencil at the setup's block size
-    a_o, b_o, t_o = _block_ops(neu, b_dad, maskf, t1)
-    x0 = default_start(n_dom, n_loc, kc, torch.float32).to(dev)
-    x0 = t_o(x0.transpose(1, 2) * maskf.reshape(n_dom, 1, -1))
-
-    def lobpcg(its):
-        return lambda: matfree_lobpcg(a_o, b_o, t_o, x0, max_it=its, tol=0.0)
-
-    runs = {}
-    for its in (1, 11, 1, 11):
-        runs.setdefault(its, []).append(time_ms(lobpcg(its), 1))
-    step = (statistics.median(runs[11]) - statistics.median(runs[1])) / 10
-    # a step reads X, P and the two pencils' fields (4 each) and the FDM
-    # denominator, and writes X, P; its products: ~3 stencil products of
-    # 3k columns, one FDM solve of k, and the Gram matrices
-    lob_bytes = (4 * kc + 10) * loc * f4
-    lob_flops = (3 * 14 * 3 * kc + 4 * lsq * kc + 8 * (3 * kc) ** 2) * loc
-    bound, by = _bound_ms(lob_bytes, lob_flops)
-    print(f"[call] LOBPCG iteration (tau pencil, k={kc}): {step:.4f} ms "
-          f"(11 iterations {statistics.median(runs[11]):.3f} ms, 1 "
-          f"{statistics.median(runs[1]):.3f} ms); bound {bound:.4f} ms by "
-          f"{by} ({lob_bytes / 1e6:.1f} MB, {lob_flops / 1e9:.2f} GFLOP), "
-          f"share of bound {bound / step:.3f}", flush=True)
+    e = roofline.lobpcg_step((neu, b_dad, maskf, t1, kc), peaks)
+    print(f"[call] LOBPCG iteration (tau pencil, k={kc}): "
+          f"{e['time_ms']:.4f} ms (1 and 11 iterations differenced); bound "
+          f"{e['bound_ms']:.4f} ms by {e['bound_by']} ({e['bytes'] / 1e6:.1f}"
+          f" MB, {e['flops'] / 1e9:.2f} GFLOP), share of bound "
+          f"{e['bound_ms'] / e['time_ms']:.3f}", flush=True)
 
     # ---- 4. profiler trace of one inner solve ----
     from torch.profiler import ProfilerActivity, profile

@@ -29,6 +29,10 @@ the batch's device, and the finished products stay there.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
+import os
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -386,6 +390,48 @@ def factor_e(e: np.ndarray, dtype, e_dtype=None
     e_null = int((ew <= tol).sum())
     ew = np.where(ew > tol, ew, np.inf)  # truncated modes
     return ev, ew, e_null
+
+
+# the port's measurement of the replication wall (perf/measure_coarse.py)
+COARSE_SCALING = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "perf", "coarse_scaling.json")
+
+
+@functools.lru_cache(maxsize=None)
+def _wall_from(path: str) -> int:
+    try:
+        with open(path) as f:
+            return int(json.load(f)["replication_wall_dim_e"])
+    except FileNotFoundError:
+        return 16384
+
+
+def coarse_replication_wall() -> int:
+    """dim_e above which the replicated coarse solve leaves its measured
+    comfort zone (host O(dim_e^3) factorization / device factor memory).
+    Measured on the card's machine by perf/measure_coarse.py into
+    perf/coarse_scaling.json (read once); 16384 when the file is absent.
+    The reference solves the same problem with distributed MUMPS
+    (src/geneo.cpp:1028-1095); the mitigations above the wall are the
+    E1/E2 efficient-hybrid family (coarse apply per outer restart) and
+    larger/fewer subdomains.  E is replicated on every rank of a
+    multi-rank run, so the wall is per rank."""
+    return _wall_from(COARSE_SCALING)
+
+
+def warn_coarse_replication(dim_e: int) -> None:
+    """WRNG on stderr (stdout is the golden-diffed protocol) when a run's
+    coarse space exceeds the measured replication wall."""
+    wall = coarse_replication_wall()
+    if dim_e > wall:
+        print(f"WRNG: dim_e = {dim_e} exceeds the measured replicated-"
+              f"coarse-solve wall ({wall}): the O(dim_e^3) host "
+              "factorization and the dense device factor dominate "
+              "(geneo4petsc_tpu_torch/perf/coarse_scaling.json). Prefer "
+              "E1/E2 (efficient hybrid), raise tau/cut selectivity, or use "
+              "fewer/larger subdomains; the reference's answer at this "
+              "scale is a distributed MUMPS factorization "
+              "(src/geneo.cpp:1028-1095).", file=sys.stderr)
 
 
 def setup_geneo(batch: SubdomainBatch, opts: GenEOOptions,
@@ -774,6 +820,7 @@ def _setup_geneo_impl(batch: SubdomainBatch, opts: GenEOOptions,
         e = e[np.ix_(keep, keep)]
         stats.real_dim_e = new_counts
         dim_e, k_max, z_np = new_dim_e, new_k_max, z2
+    warn_coarse_replication(dim_e)
     # the Cholesky path is gated in the precision the factors are applied
     # in; the truncation floor is E's own float64
     ev_np, ew_np, stats.e_null = factor_e(

@@ -40,7 +40,8 @@ from ..ops import batched_linalg as bl
 from ..ops.batched_linalg import require_full_f32
 from ..ops.lobpcg import default_start, matfree_lobpcg
 from ..precond.geneo import (GenEOStats, _gamma_loc, factor_e,
-                             prune_dependent_columns)
+                             prune_dependent_columns,
+                             warn_coarse_replication)
 from . import fdm, halo, solvers
 from . import local_ops as lo
 from .block_tridiag import bt_inertia
@@ -249,6 +250,7 @@ def finalize_coarse(e: np.ndarray, z: torch.Tensor, counts: np.ndarray,
     for p in range(n_dom):
         colids_np[p, :counts[p]] = offs[p] + np.arange(counts[p])
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    warn_coarse_replication(dim_e)
     ev_np, ew_np, stats.e_null = factor_e(e, np_dtype, e_dtype=np.float64)
     dev = z.device
     return (z, torch.from_numpy(colids_np).to(dev),

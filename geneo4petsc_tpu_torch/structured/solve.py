@@ -31,7 +31,7 @@ from ..parallel import multiproc
 from .blockmode import BlockGenEO, build_block_mode
 from .decompose import StructuredDecomposition
 from .geneo import StructuredGenEO, setup_structured
-from .grid import StructuredGrid, global_stencil
+from .grid import StructuredGrid, global_stencil, laplacian_grid
 
 
 @dataclass
@@ -294,3 +294,13 @@ def _solve_ranks(grid, dom_grid, overlap, ranks, geneo, ksp, tol, dtype,
         refined=ref, x=ref.x, b=b, pc_name=geneo.name,
         stats=stats, timers=timers, true_res=true_res,
         n_dof=grid.n_nodes, n_dom=sd.n_dom, pc=sh)
+
+
+def laplacian_structured(size: int, dim: int = 3, kappa_max: float = 1.0,
+                         interp: str = "", inp_eps: float = 0.0001,
+                         weak_scaling: int = 1) -> StructuredGrid:
+    """The vectorized laplacian grid (laplacian_grid) under the JAX
+    package's public name."""
+    return laplacian_grid(size, dim=dim, kappa_max=kappa_max,
+                          interp=interp, inp_eps=inp_eps,
+                          weak_scaling=weak_scaling)

@@ -95,11 +95,13 @@ assert not bad, bad
     "geneo4petsc_tpu_torch.parallel.multiproc",
     "geneo4petsc_tpu_torch.parallel.sharded",
     "geneo4petsc_tpu_torch.parallel.dist",
-    "geneo4petsc_tpu_torch.parallel.probes"])
+    "geneo4petsc_tpu_torch.parallel.probes",
+    "geneo4petsc_tpu_torch.utils.roofline",
+    "geneo4petsc_tpu_torch.perf.measure_coarse"])
 def test_new_module_imports_alone_with_jax_blocked(module):
     """Each module of the elastic backend, the library surface, the block
-    layout and the multi-rank layouts imports on its own in a process
-    where JAX cannot be imported."""
+    layout, the multi-rank layouts and the measuring tools imports on its
+    own in a process where JAX cannot be imported."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300, check=False,
