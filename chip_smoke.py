@@ -148,8 +148,43 @@ with a non-zero exit code and no result line:
               coarse_scaling.json (the coarse replication wall) is there,
               names an NVIDIA card and gives the wall the package reads.
 
-Phase path-shapes runs last, over the shapes of phases 5, 8, 9, 11, 12
-and 17.
+21. battery — the JAX package's on-chip battery (tst/smoke_tpu.py)
+              through the port on the card in float64, from the JAX
+              package's LOBPCG start block, 2x2x2 boxes, overlap 1: on
+              laplacian 24^3 (kappa 1e4 minmax) ORAS,0, SORAS,2,
+              SORAS,H2 and ASM,E1, and ASM,E1 with n_devices=1 (one
+              spawned NCCL rank); heat 16^3 SORAS,2; the non-separable
+              inclusion grid 24^3 ASM,E1 (level-1 PCG rtol 0.05, 40
+              iterations) on the exact block-tridiagonal route and, with
+              bt_budget_bytes=0, on the inexact surrogate-PCG route;
+              elasticity size 10 RAS,1 and SORAS,2 (tau 0.3, cut 8,
+              level-1 PCG 0.02 / 80).  Each case converged to <= 1e-8,
+              with the JAX package's float64 outer passes and per-domain
+              dim_e (GenEO-2: the pre-prune counts and the total), inner
+              iterations within 1 on an exact route and within
+              BATTERY_INEXACT_BAND on an inexact one (BATTERY_JAX), the
+              level-1 solver of its route, finite on the card, and Z on
+              the card; no K1/K2 launch.  The TPU's record
+              (tst/golden/smoke_tpu_results.json) is printed beside
+              each case, not held.
+22. nonsep  — the JAX package's `bench.py nonsep10m` (bench.py:403-488):
+              inclusion_grid(216, dim=3, kappa_max=1e4, n_inc=27),
+              10,077,696 DOF, 4x4x4 boxes, overlap 2, ASM,E1, LOBPCG cut
+              2 max_it 50, level-1 PCG rtol 0.05 at most 40 iterations,
+              on the card's default plan (float32 inner CG in float64
+              refinement to a true 1e-8), once.  The factor of the exact
+              route would take ~168 GB, so the level-1 solves and the
+              shift-invert LOBPCG run the surrogate-FDM PCG.  Holds
+              convergence (and again on the host), the inexact route and
+              no K1/K2 launch; prints the counts, dim_e, rel_err_max
+              against x = 1..n, the phase seconds, peak memory, the PCG
+              iterations of the LOBPCG and of each level-1 apply, and one
+              level-1 apply timed with and without its per-iteration
+              host check (CUDA events, in turns).
+
+Phase battery runs after phase 6 and nonsep after phase 7; phase
+path-shapes runs last, over the shapes of phases 5, 8, 9, 11, 12 and
+17.
 
 It then prints its wall seconds, one JSON line with every kernel's
 launches (the sum over the phases that drive a main path, and each
@@ -323,6 +358,76 @@ MULTI_FLOOR_BAND = 3
 MULTI_FLOAT64 = {("laplacian", "ASM,E1"): (33, 2, 8),
                  ("laplacian", "RAS,1"): (36, 2, 8),
                  ("heat", "SORAS,2"): (14, 2, 2368)}
+
+# battery: the JAX package's on-chip battery (tst/smoke_tpu.py) with its
+# builders and options, plus the non-separable case on the inexact route
+# (block-tridiagonal budget 0); (name, grid, level, extra options)
+BATTERY = [
+    ("lap-ORAS,0", "lap", "ORAS,0", {}),
+    ("lap-SORAS,2", "lap", "SORAS,2", {}),
+    ("lap-SORAS,H2", "lap", "SORAS,H2", {}),
+    ("lap-ASM,E1", "lap", "ASM,E1", {}),
+    ("heat-SORAS,2", "heat", "SORAS,2", {}),
+    ("nonsep-ASM,E1", "nonsep", "ASM,E1", {}),
+    ("nonsep-ASM,E1-inexact", "nonsep", "ASM,E1", {"bt_budget_bytes": 0}),
+    ("lap-ASM,E1-sharded1dev", "lap", "ASM,E1", {"n_devices": 1}),
+    ("elas-RAS,1", "elas", "RAS,1", {}),
+    ("elas-SORAS,2", "elas", "SORAS,2", {}),
+]
+BATTERY_GRIDS = {
+    "lap": ("laplacian_grid", 24, dict(dim=3, kappa_max=1e4,
+                                       interp="minmax")),
+    "heat": ("heat_grid", 16, dict(dim=3, kappa_max=100.0, interp="minmax",
+                                   lbd=1.0, dt=0.1)),
+    "nonsep": ("inclusion_grid", 24, dict(dim=3, kappa_max=1e4, n_inc=8)),
+    "elas": ("elastic_grid", 10, dict(kappa_max=100.0, interp="minmax",
+                                      spring=100.0)),
+}
+BATTERY_DOMS, BATTERY_OVERLAP = (2, 2, 2), 1
+# the JAX package's values on the CPU, float64, by the device refinement
+# route (the card's default): (outer, inner, per-domain raw dim_e (GenEO-2)
+# or real dim_e, level-1 solver) from
+#   python -c "import jax; jax.config.update('jax_enable_x64', True)
+#   import os, jax.numpy as jnp
+#   from geneo4petsc_tpu.config import GenEOOptions, KSPOptions
+#   from geneo4petsc_tpu.structured import grid as G
+#   from geneo4petsc_tpu.structured.solve import solve_structured
+#   from geneo4petsc_tpu.structured.elastic import elastic_grid, solve_elastic
+#   o = GenEOOptions(); o.lvl1, o.lvl2 = LVL.split(','); o.els2.type = 'lobpcg'
+#   # lap/heat/nonsep: o.cut = 2; nonsep also o.dls1.rtol, o.dls1.max_it
+#   #   = 0.05, 40; -inexact: os.environ['GENEO_BT_BUDGET_GB'] = '0'
+#   out = solve_structured(G.<grid>(<size>, **<options>), (2, 2, 2), 1,
+#       geneo=o, ksp=KSPOptions(type='cg'), tol=1e-8, dtype=jnp.float64,
+#       device_refine=True[, n_devices=1])
+#   # elas: o.cut, o.tau, o.dls1.rtol, o.dls1.max_it = 8, 0.3, 0.02, 80
+#   #   out = solve_elastic(elastic_grid(10, ...), (2, 2, 2), 1, o,
+#   #       tol=1e-8, dtype=jnp.float64, device_refine=True)
+#   print(out.refined.outer_its, out.refined.inner_its,
+#         list(out.stats.raw_dim_e), list(out.stats.real_dim_e))"
+# run from the repository root with JAX on the CPU, one call per case
+# (BATTERY_GRIDS gives <grid>, <size> and <options>).  The port gives the
+# same counts on the CPU (tests/test_torch_structured_general.py holds
+# the general solvers against JAX there).
+BATTERY_JAX = {
+    "lap-ORAS,0": (3, 353, [0] * 8, "BTSolver"),
+    "lap-SORAS,2": (2, 50, [1] * 8, "BTSolver"),
+    "lap-SORAS,H2": (2, 43, [1] * 8, "BTSolver"),
+    "lap-ASM,E1": (2, 32, [1] * 8, "FDMFactor"),
+    "heat-SORAS,2": (2, 47, [1] * 8, "BTSolver"),
+    "nonsep-ASM,E1": (2, 34, [1, 1, 1, 1, 1, 2, 2, 1], "BTSolver"),
+    "nonsep-ASM,E1-inexact": (2, 44, [1, 1, 1, 1, 1, 2, 2, 1], "PCGSolver"),
+    "lap-ASM,E1-sharded1dev": (2, 32, [1] * 8, "FDMFactor"),
+    "elas-RAS,1": (2, 33, [8] * 8, "PCGSolver"),
+    "elas-SORAS,2": (2, 111, [4] * 8, "PCGSolver"),
+}
+# inner iterations on an exact route (FDM, block-tridiagonal) within 1 of
+# JAX's; on an inexact one (the level-1 PCG stops at rtol 0.05 / 0.02, so
+# the card's rounding moves where it stops) within BATTERY_INEXACT_BAND
+BATTERY_INEXACT_BAND = 5
+# nonsep: bench.py nonsep10m (bench.py:403-488, mode at :884-886)
+NONSEP_GRID = dict(size=216, dim=3, kappa_max=1e4, n_inc=27)
+NONSEP_DOMS, NONSEP_OVERLAP = (4, 4, 4), 2
+NONSEP_DOF = 10077696
 
 LARGE_SIZE, LARGE_GRID = 512, 32   # bench.py:901-904, mode "large"
 LARGE_CUT = 4
@@ -783,6 +888,270 @@ def phase_structured() -> dict:
           f"K1/K2 launched on the structured path: {launches}")
     check(peak_gb >= 1.0, f"peak device memory {peak_gb:.2f} GB: the "
                           "structured operators did not live on the card")
+    return info
+
+
+def _l1_tensor(l1):
+    """A tensor of a level-1 solver, for its device (and finiteness)."""
+    return {"FDMFactor": lambda: l1.den, "BTSolver": lambda: l1.fac.w,
+            "PCGSolver": lambda: l1.maskf}[type(l1).__name__]()
+
+
+def _battery_case(name, kind, lvl, extra):
+    """One battery case on the card in float64, from the JAX package's
+    start block; returns the solve's output and its seconds."""
+    import torch
+
+    from geneo4petsc_tpu_torch.config import GenEOOptions, KSPOptions
+    from geneo4petsc_tpu_torch.perf.lobpcg_start import jax_start
+    from geneo4petsc_tpu_torch.structured import elastic
+    from geneo4petsc_tpu_torch.structured import grid as sgrid
+    from geneo4petsc_tpu_torch.structured.solve import solve_structured
+
+    builder, size, kw = BATTERY_GRIDS[kind]
+    o = GenEOOptions()
+    o.lvl1, o.lvl2 = lvl.split(",")
+    o.els2.type = "lobpcg"
+    t0 = time.perf_counter()
+    if kind == "elas":
+        o.cut, o.tau = 8, 0.3
+        o.dls1.rtol, o.dls1.max_it = 0.02, 80
+        out = elastic.solve_elastic(
+            elastic.elastic_grid(size, **kw), BATTERY_DOMS, BATTERY_OVERLAP,
+            o, tol=1e-8, dtype=torch.float64, setup_dtype=torch.float64,
+            device="cuda", lobpcg_start=jax_start)
+    else:
+        o.cut = 2
+        if kind == "nonsep":
+            o.dls1.rtol, o.dls1.max_it = 0.05, 40
+        out = solve_structured(
+            getattr(sgrid, builder)(size, **kw), BATTERY_DOMS,
+            BATTERY_OVERLAP, geneo=o, ksp=KSPOptions(type="cg"), tol=1e-8,
+            dtype=torch.float64, device="cuda", lobpcg_start=jax_start,
+            **extra)
+    return out, time.perf_counter() - t0
+
+
+def phase_battery() -> dict:
+    """The JAX package's on-chip battery through the port on the card
+    (see the docstring): each case held to the JAX package's float64
+    counts on the CPU (BATTERY_JAX), its route and where its factors
+    live; the TPU's record printed beside it, not held."""
+    import torch
+
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+
+    with open(os.path.join(HERE, "tst", "golden",
+                           "smoke_tpu_results.json")) as f:
+        tpu = json.load(f)
+    lk.fused_local_solve.launches = lk.block_matvec.launches = 0
+    t_phase = time.perf_counter()
+    for name, kind, lvl, extra in BATTERY:
+        torch.cuda.empty_cache()
+        out, wall = _battery_case(name, kind, lvl, extra)
+        outer, inner, dims, route = BATTERY_JAX[name]
+        st, pc = out.stats, out.pc
+        raw = [int(v) for v in (st.raw_dim_e if st.raw_dim_e is not None
+                                else st.real_dim_e)]
+        real = [int(v) for v in st.real_dim_e]
+        got_route = None if pc is None else type(pc.l1).__name__
+        exact = route != "PCGSolver"
+        band = 1 if exact else BATTERY_INEXACT_BAND
+        t = tpu["cases"].get(name)
+        ref = ("none" if t is None else
+               f"{t['its']} inner / {t['outer']} outer, dim_e {t['dim_e']}, "
+               f"true_res {t['true_res']:.3e}, {t['wall_s']} s")
+        print(f"[battery] {name}: {out.refined.inner_its} inner / "
+              f"{out.refined.outer_its} outer (JAX float64 on the CPU: "
+              f"{inner} / {outer}), dim_e {sum(real)} per domain {real}"
+              f"{f' raw {raw}' if lvl.endswith('2') else ''}, level-1 "
+              f"{got_route or 'on the rank'}, true_res "
+              f"{out.true_res:.3e}, {wall:.2f} s; TPU v5 lite, JAX (not "
+              f"held): {ref}", flush=True)
+        check(out.converged and out.true_res <= 1e-8,
+              f"battery {name}: not converged to 1e-8 ({out.true_res})")
+        check(bool(np.isfinite(out.x).all()),
+              f"battery {name}: non-finite solution")
+        check(out.refined.outer_its == outer,
+              f"battery {name}: {out.refined.outer_its} outer passes != "
+              f"JAX's {outer}")
+        if lvl.endswith("2"):
+            check(raw == dims and sum(real) == sum(dims),
+                  f"battery {name}: raw dim_e {raw} (real {real}) != "
+                  f"JAX's {dims}")
+        else:
+            check(real == dims, f"battery {name}: dim_e {real} != JAX's "
+                                f"{dims}")
+        check(abs(out.refined.inner_its - inner) <= band,
+              f"battery {name}: {out.refined.inner_its} inner iterations, "
+              f"JAX's {inner} (band {band})")
+        if pc is None:      # the spawned rank hands back no preconditioner
+            continue
+        check(got_route == route, f"battery {name}: level-1 solver "
+                                  f"{got_route}, expected {route}")
+        # the elastic level-1 solver is always the PCG one
+        check(getattr(pc, "l1_exact", False) == exact,
+              f"battery {name}: l1_exact {getattr(pc, 'l1_exact', None)}")
+        factor = _l1_tensor(pc.l1)
+        check(factor.device.type == "cuda"
+              and bool(torch.isfinite(factor).all()),
+              f"battery {name}: the level-1 factors are not finite on the "
+              "card")
+        check(pc.z is None or pc.z.device.type == "cuda",
+              f"battery {name}: the coarse basis is not on the card")
+        del out, pc, factor
+    launches = {"fused_local_solve": lk.fused_local_solve.launches,
+                "block_matvec": lk.block_matvec.launches}
+    print(f"[battery] {len(BATTERY)} cases in "
+          f"{time.perf_counter() - t_phase:.1f} s (TPU v5 lite, JAX, its "
+          f"9 cases: {tpu['wall_s']} s); K1/K2 launches {launches}",
+          flush=True)
+    check(launches == {"fused_local_solve": 0, "block_matvec": 0},
+          f"battery: K1/K2 launched {launches}")
+    return launches
+
+
+def phase_nonsep() -> dict:
+    """bench.py nonsep10m through solve_structured at full size on the
+    card's default plan (see the docstring); then the level-1 PCG's host
+    checks timed against the same iterations without them."""
+    import torch
+
+    from geneo4petsc_tpu_torch.config import GenEOOptions, KSPOptions
+    from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.structured import solve as ssolve
+    from geneo4petsc_tpu_torch.structured.grid import inclusion_grid
+    from geneo4petsc_tpu_torch.structured.solvers import PCGSolver
+    from geneo4petsc_tpu_torch.utils.cuda_timing import time_in_turns
+    from geneo4petsc_tpu_torch.utils.timers import Timers
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lk.fused_local_solve.launches = lk.block_matvec.launches = 0
+    t0 = time.perf_counter()
+    grid = inclusion_grid(**NONSEP_GRID)
+    t_gen = time.perf_counter() - t0
+    opts = GenEOOptions()
+    opts.lvl1, opts.lvl2 = "ASM", "E1"
+    opts.els2.type, opts.els2.max_it, opts.cut = "lobpcg", 50, 2
+    opts.dls1.rtol, opts.dls1.max_it = 0.05, 40
+    timers = Timers()
+    # the PCG counts at the start of the solve phase: the setup's are the
+    # shift-invert LOBPCG's, the solve's the level-1 applies'
+    at_solve = {}
+    refine = ssolve.refined_solve_device
+
+    def mark(*a, **kw):
+        at_solve.update(solves=PCGSolver.solves,
+                        iterations=PCGSolver.iterations)
+        return refine(*a, **kw)
+
+    PCGSolver.solves = PCGSolver.iterations = 0
+    ssolve.refined_solve_device = mark
+    t0 = time.perf_counter()
+    try:
+        # the card's default plan: float32 inner solves in float64
+        # refinement, the device refinement route
+        out = ssolve.solve_structured(grid, NONSEP_DOMS, NONSEP_OVERLAP,
+                                      geneo=opts, ksp=KSPOptions(type="cg"),
+                                      tol=1e-8, timers=timers,
+                                      device="cuda")
+    finally:
+        ssolve.refined_solve_device = refine
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"fused_local_solve": lk.fused_local_solve.launches,
+                "block_matvec": lk.block_matvec.launches}
+    setup_pcg = (at_solve["solves"], at_solve["iterations"])
+    solve_pcg = (PCGSolver.solves - setup_pcg[0],
+                 PCGSolver.iterations - setup_pcg[1])
+    n = grid.n_nodes
+    x = np.asarray(out.x, np.float64)
+    err = float(np.max(np.abs(x - np.arange(1.0, n + 1)))) / n
+    t0 = time.perf_counter()
+    host_res = float(np.linalg.norm(out.b - grid.matvec(x))
+                     / np.linalg.norm(out.b))
+    t_host = time.perf_counter() - t0
+    st, tm, pc = out.stats, timers.get, out.pc
+    info = {"n_dof": n, "dim_e": int(st.real_dim_e.sum()),
+            "nicolaides": int(st.nicolaides.sum()),
+            "inner": out.refined.inner_its, "outer": out.refined.outer_its,
+            "true_res": out.true_res, "host_res": host_res,
+            "rel_err_max": err, "peak_gb": peak_gb, "wall_s": wall,
+            "generator_s": t_gen, "createA_s": tm("createA"),
+            "l1_s": tm("l1_minv"), "l2_eig_s": tm("l2_eig"),
+            "setup_s": tm("setup"), "solve_s": tm("solve"),
+            "lobpcg_pcg": setup_pcg, "l1_pcg": solve_pcg,
+            "history": out.refined.history}
+    print(f"[nonsep] {n} DOF (inclusion_grid {NONSEP_GRID['size']}^3, "
+          f"{NONSEP_GRID['n_inc']} inclusions, kappa "
+          f"{NONSEP_GRID['kappa_max']:g}), 4x4x4 boxes of {pc.local_shape} "
+          f"nodes, overlap "
+          f"{NONSEP_OVERLAP}: level-1 {type(pc.l1).__name__} (l1_exact "
+          f"{pc.l1_exact}), {info['inner']} inner / {info['outer']} outer "
+          f"iterations, dim_e {info['dim_e']} (per domain "
+          f"{int(st.real_dim_e.min())}-{int(st.real_dim_e.max())}, "
+          f"nicolaides {info['nicolaides']}), true_res {out.true_res:.3e} "
+          f"(host float64 recheck {host_res:.3e} in {t_host:.1f} s), "
+          f"rel_err_max {err:.3e}, refinement history "
+          f"{out.refined.history}", flush=True)
+    print(f"[nonsep] phases: generator {t_gen:.3f} s, createA "
+          f"{tm('createA'):.3f} s, setup {tm('setup'):.3f} s (L1 "
+          f"{tm('l1_minv'):.3f} s, l2_eig {tm('l2_eig'):.3f} s, Z "
+          f"{tm('l2_z'):.3f} s, E {tm('l2_e'):.3f} s), solve "
+          f"{tm('solve'):.3f} s; library wall {wall:.2f} s, peak device "
+          f"memory {peak_gb:.2f} GB; PCG: shift-invert LOBPCG "
+          f"{setup_pcg[0]} solves / {setup_pcg[1]} iterations, level-1 "
+          f"{solve_pcg[0]} applies / {solve_pcg[1]} iterations "
+          f"({solve_pcg[1] / max(solve_pcg[0], 1):.2f} an apply, cap "
+          f"{opts.dls1.max_it}); K1/K2 launches {launches}", flush=True)
+    check(out.converged and out.true_res <= 1e-8 and host_res <= 1e-8,
+          f"nonsep: not converged to 1e-8 (true_res {out.true_res}, host "
+          f"{host_res})")
+    check(bool(np.isfinite(x).all()), "nonsep: non-finite solution")
+    check(type(pc.l1).__name__ == "PCGSolver" and not pc.l1_exact,
+          f"nonsep: level-1 {type(pc.l1).__name__}, expected the inexact "
+          "PCG route")
+    check(setup_pcg[0] > 0, "nonsep: the shift-invert LOBPCG ran no PCG")
+    check(pc.z is not None and pc.z.device.type == "cuda"
+          and pc.l1.maskf.device.type == "cuda",
+          "nonsep: the preconditioner did not live on the card")
+    check(launches == {"fused_local_solve": 0, "block_matvec": 0},
+          f"nonsep: K1/K2 launched {launches}")
+
+    # the level-1 solve's per-iteration host check (PCGSolver.solve's
+    # busy()): one apply as the solve runs it, in turns with the same
+    # number of iterations enqueued without the checks (CUDA events)
+    l1 = pc.l1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rhs = torch.randn(l1.maskf.shape, generator=gen, device="cuda",
+                      dtype=l1.maskf.dtype) * l1.maskf
+    before = PCGSolver.iterations
+    l1.solve(rhs)
+    k = PCGSolver.iterations - before
+
+    def unchecked():
+        m, _tol2, state = l1.start(rhs)
+        for _ in range(k):
+            state = l1.step(m, state)
+        return state[0] * m
+
+    checked, free = time_in_turns(lambda: l1.solve(rhs), unchecked,
+                                  reps=2, rounds=3, warmup=1)
+    per_it = (checked["ms"] - free["ms"]) / max(k, 1)
+    total_its = setup_pcg[1] + solve_pcg[1]
+    share = per_it * total_its / 1e3 / (tm("setup") + tm("solve"))
+    info.update(apply_ms=checked["ms"], apply_unchecked_ms=free["ms"],
+                apply_its=k, check_ms_per_it=per_it, check_share=share,
+                launches=launches)
+    print(f"[nonsep] level-1 apply ({k} PCG iterations, float32): "
+          f"{checked['ms']:.3f} ms [{checked['min_ms']:.3f}, "
+          f"{checked['max_ms']:.3f}] with a host check an iteration, "
+          f"{free['ms']:.3f} ms [{free['min_ms']:.3f}, {free['max_ms']:.3f}]"
+          f" without (CUDA events, in turns): {per_it:.4f} ms a check; "
+          f"over the run's {total_its} PCG iterations about "
+          f"{per_it * total_its / 1e3:.2f} s, {share:.3f} of setup + "
+          "solve", flush=True)
     return info
 
 
@@ -1650,7 +2019,9 @@ def main() -> int:
     by_phase = {}
     by_phase["slice"], slice_shape, slice_info = phase_slice()
     phase_structured_parity()
+    by_phase["battery"] = phase_battery()
     phase_structured()
+    by_phase["nonsep"] = phase_nonsep()["launches"]
     large = phase_large(slice_info)
     by_phase["large"] = large["launches"]
     by_phase["generic-family"], family_shapes = phase_generic_family()
@@ -1676,8 +2047,9 @@ def main() -> int:
                "block_matvec": ("geneo4petsc_tpu_torch/csrc/block_matvec.cu",
                                 "geneo4petsc_tpu/ops/pallas_kernels.py:125")}
     # launches: the sum over the phases that drive a main path with K1/K2
-    # (slice, large, generic-family, api, chk-dbg, nccl-generic; the
-    # structured and elastic paths have none); the
+    # (slice, large, generic-family, api, chk-dbg, nccl-generic) and the
+    # battery's and nonsep's zeros (the structured and elastic paths have
+    # none either); the
     # times and error at the slice's shape, and in "shapes" at every
     # shape a main path gave the kernel
     rows = []

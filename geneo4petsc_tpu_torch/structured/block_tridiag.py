@@ -72,13 +72,25 @@ def bt_factor(diag_p: torch.Tensor, inplane, c: torch.Tensor
     n_dom, p, s2 = diag_p.shape
     w_all = torch.empty((p, n_dom, s2, s2), dtype=diag_p.dtype,
                         device=diag_p.device)
+    # the first plane whose Schur complement is not positive definite,
+    # per domain (p: none), read back once after the recursion
+    first_bad = torch.full((n_dom,), p, dtype=torch.int32,
+                           device=diag_p.device)
 
     def step(i, s):
-        fac, _info = torch.linalg.cholesky_ex(s)
+        fac, info = torch.linalg.cholesky_ex(s)
+        first_bad.masked_fill_((info != 0) & (first_bad == p), i)
         w_all[i] = torch.cholesky_inverse(fac)
         return w_all[i]
 
     _recursion(diag_p, inplane, c, step)
+    bad = (first_bad < p).nonzero().flatten()
+    if bad.numel():
+        doms = bad.tolist()
+        raise ValueError(
+            f"bt_factor: the operator is not positive definite: the Schur "
+            f"complement of plane {first_bad[doms[0]].item()} of domain "
+            f"{doms[0]} has no Cholesky factor (domains {doms})")
     return BlockTridiagFactor(w=w_all, c=c.transpose(0, 1).contiguous())
 
 

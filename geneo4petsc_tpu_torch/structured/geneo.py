@@ -371,7 +371,8 @@ def coarse_e(sd: StructuredDecomposition, z: torch.Tensor,
 
 def setup_structured(sd: StructuredDecomposition, opts: GenEOOptions,
                      b: torch.Tensor | None = None, dtype=torch.float32,
-                     timers=None, device="cuda", lobpcg_start=None
+                     timers=None, device="cuda", lobpcg_start=None,
+                     bt_budget_bytes: float | None = None
                      ) -> tuple[StructuredGenEO, GenEOStats]:
     """Structured setUpGenEOPC: fields gather -> FDM factors -> batched
     matrix-free eigensolve -> Z -> E, on ``device`` except the tiny 1-D
@@ -379,7 +380,11 @@ def setup_structured(sd: StructuredDecomposition, opts: GenEOOptions,
 
     ``lobpcg_start(d, n_loc, k, dtype)`` gives the [d, n_loc, k] Gaussian
     start block of one LOBPCG run (default: ``default_start``); the same
-    draw starts every domain chunk, as in the JAX package."""
+    draw starts every domain chunk, as in the JAX package.
+    ``bt_budget_bytes``: the factor memory allowed to the exact
+    block-tridiagonal route of every general solve (the level-1 solver
+    and the shift-invert preconditioners; default
+    solvers.BT_BUDGET_BYTES): 0 sends them all to the inexact PCG route."""
     opts.validate()
     require_full_f32()
     device = torch.device(device)
@@ -414,7 +419,8 @@ def setup_structured(sd: StructuredDecomposition, opts: GenEOOptions,
     # surrogate-preconditioned PCG beyond (solvers.py policy)
     l1_exact = True
     l1_kw = dict(rtol=float(opts.dls1.rtol),
-                 max_it=min(int(opts.dls1.max_it), 200))
+                 max_it=min(int(opts.dls1.max_it), 200),
+                 bt_budget_bytes=bt_budget_bytes)
     if opts.lvl1_oras:
         l1, l1_exact = solvers.select_local_solver(
             lo.robin_stencil(f, opts.optim), maskf, sd.local_shape, **l1_kw)
@@ -607,7 +613,8 @@ def setup_structured(sd: StructuredDecomposition, opts: GenEOOptions,
     cut_p = opts.cut
     if opts.lvl2_num == 2 and cut_p >= 2:
         cut_p = cut_p // 2                    # halved (geneo.cpp:1275)
-    t_kw = dict(rtol=5e-2, max_it=30)         # t_op is a preconditioner
+    t_kw = dict(rtol=5e-2, max_it=30,         # t_op is a preconditioner
+                bt_budget_bytes=bt_budget_bytes)
     if opts.lvl2_num == 1:
         thr1 = np.full(n_dom, float(opts.tau))
         if dense_ok:

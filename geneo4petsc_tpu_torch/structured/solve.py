@@ -98,7 +98,8 @@ def solve_structured(grid: StructuredGrid, dom_grid, overlap: int,
                      lobpcg_start=None,
                      checkpoint_dir: str | None = None,
                      n_devices: int | None = None,
-                     block_layout: bool = False
+                     block_layout: bool = False,
+                     bt_budget_bytes: float | None = None
                      ) -> StructuredSolveOutput:
     """Solve the grid's manufactured system (x = 1..n) on ``device``.
 
@@ -121,7 +122,12 @@ def solve_structured(grid: StructuredGrid, dom_grid, overlap: int,
 
     ``block_layout`` (single process only, as in the JAX package): run
     the inner Krylov loop on block-major vectors (structured/blockmode.py)
-    so that the per-iteration apply pays no global <-> brick permute."""
+    so that the per-iteration apply pays no global <-> brick permute.
+
+    ``bt_budget_bytes``: the factor memory allowed to the exact
+    block-tridiagonal route of the general local solvers (setup_structured;
+    default solvers.BT_BUDGET_BYTES, 2 GB); 0 forces the inexact
+    surrogate-PCG route."""
     if n_devices is not None:
         from .sharded import need_divisible
         need_divisible(grid.shape[2], int(np.prod(dom_grid)), n_devices)
@@ -132,12 +138,13 @@ def solve_structured(grid: StructuredGrid, dom_grid, overlap: int,
                     geneo=geneo, ksp=ksp, tol=tol, dtype=dtype,
                     device=str(torch.device(device).type),
                     device_refine=device_refine, lobpcg_start=lobpcg_start,
-                    checkpoint_dir=checkpoint_dir, n_devices=n_devices)),
+                    checkpoint_dir=checkpoint_dir, n_devices=n_devices,
+                    bt_budget_bytes=bt_budget_bytes)),
                 device=device)
         return _solve_ranks(grid, dom_grid, overlap, ranks,
                             geneo or GenEOOptions(), ksp or KSPOptions(),
                             tol, dtype, timers or Timers(), lobpcg_start,
-                            device_refine, checkpoint_dir)
+                            device_refine, checkpoint_dir, bt_budget_bytes)
     geneo = geneo or GenEOOptions()
     ksp = ksp or KSPOptions()
     timers = timers or Timers()
@@ -173,9 +180,10 @@ def solve_structured(grid: StructuredGrid, dom_grid, overlap: int,
     pc, stats = setup_with_checkpoint(
         lambda: setup_structured(
             sd, geneo, b=torch.as_tensor(b).to(device, dtype), dtype=dtype,
-            timers=timers, device=device, lobpcg_start=lobpcg_start),
+            timers=timers, device=device, lobpcg_start=lobpcg_start,
+            bt_budget_bytes=bt_budget_bytes),
         grid, dom_grid, overlap, geneo, dtype, timers, checkpoint_dir,
-        device)
+        device, bt_budget_bytes=bt_budget_bytes)
     pc_iter = build_block_mode(pc, sd, dtype, device) if block_layout \
         else pc
     sync()
@@ -219,8 +227,8 @@ def _rank_solve(grid, dom_grid, overlap, kw):
 
 
 def _solve_ranks(grid, dom_grid, overlap, ranks, geneo, ksp, tol, dtype,
-                 timers, lobpcg_start, device_refine, checkpoint_dir
-                 ) -> StructuredSolveOutput:
+                 timers, lobpcg_start, device_refine, checkpoint_dir,
+                 bt_budget_bytes) -> StructuredSolveOutput:
     """This rank's part of a multi-rank solve: the setup replicated on
     every rank, then the iterations on the rank's planes and domains, by
     the single-process refinement route (``device_refine``, default: the
@@ -254,9 +262,10 @@ def _solve_ranks(grid, dom_grid, overlap, ranks, geneo, ksp, tol, dtype,
     pc, stats = setup_with_checkpoint(
         lambda: setup_structured(
             sd, geneo, b=torch.as_tensor(b).to(device, dtype), dtype=dtype,
-            timers=timers, device=device, lobpcg_start=lobpcg_start),
+            timers=timers, device=device, lobpcg_start=lobpcg_start,
+            bt_budget_bytes=bt_budget_bytes),
         grid, dom_grid, overlap, geneo, dtype, timers, checkpoint_dir,
-        device, ranks)
+        device, ranks, bt_budget_bytes=bt_budget_bytes)
     _mv, _ap, sh, shard_vec = shard_structured(pc, ranks)
     if device_refine:
         op64 = shard_refine64(gop64, ranks)

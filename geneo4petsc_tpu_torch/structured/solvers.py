@@ -192,7 +192,13 @@ class PCGSolver:
 
     ``reduce_dims``: the axes of one system (default: the box, so every
     block column is a system of its own; the elastic backend adds the
-    displacement-component axis, which belongs to the system)."""
+    displacement-component axis, which belongs to the system).
+
+    ``PCGSolver.solves`` / ``PCGSolver.iterations`` count the calls of
+    ``solve`` and their iterations, over every instance (a caller zeroes
+    them before the run it reads).  ``start`` and ``step`` are one
+    solve's pieces: ``solve`` checks the residuals on the host before
+    each ``step``."""
 
     st: lo.LocalStencil
     pre: ScaledFDM
@@ -204,40 +210,53 @@ class PCGSolver:
     # the worst domain of every rank has converged
     ip: object = None
 
-    def solve(self, x: torch.Tensor) -> torch.Tensor:
+    solves = 0
+    iterations = 0
+
+    def _dots(self, u, v):
+        return (u * v).sum(dim=self.reduce_dims, keepdim=True)
+
+    def start(self, x: torch.Tensor):
+        """(mask, squared tolerances, state (u, r, p, rz)) of a solve of
+        the system with right-hand side ``x``."""
         m = lo.lift(self.maskf, x)
         b = x * m
-        dims = self.reduce_dims
-
-        def dots(u, v):
-            return (u * v).sum(dim=dims, keepdim=True)
-
         tiny = torch.finfo(b.dtype).tiny
-        tol2 = (self.rtol * torch.clamp(dots(b, b).sqrt(), min=tiny)) ** 2
-        r = b
-        p = self.pre.solve(r)
-        rz = dots(r, p)
-        u = torch.zeros_like(b)
-        it = 0
+        tol2 = (self.rtol * torch.clamp(self._dots(b, b).sqrt(),
+                                        min=tiny)) ** 2
+        p = self.pre.solve(b)
+        return m, tol2, (torch.zeros_like(b), b, p, self._dots(b, p))
+
+    def step(self, m: torch.Tensor, state):
+        """One PCG iteration of every system."""
+        u, r, p, rz = state
+        w = self.st.matvec(p) * m
+        pw = self._dots(p, w)
+        alpha = torch.where(pw > 0, rz / torch.clamp(pw, min=1e-30),
+                            torch.zeros_like(pw))
+        u = u + alpha * p
+        r = r - alpha * w
+        z = self.pre.solve(r)
+        rz2 = self._dots(r, z)
+        beta = torch.where(rz > 0, rz2 / torch.clamp(rz, min=1e-30),
+                           torch.zeros_like(rz))
+        return u, r, z + beta * p, rz2
+
+    def solve(self, x: torch.Tensor) -> torch.Tensor:
+        m, tol2, state = self.start(x)
+
         def busy():
-            b = (dots(r, r) > tol2).any()
+            r = state[1]
+            b = (self._dots(r, r) > tol2).any()
             return bool(b) if self.ip is None else self.ip.any(b)
 
+        it = 0
         while it < self.max_it and busy():
-            w = self.st.matvec(p) * m
-            pw = dots(p, w)
-            alpha = torch.where(pw > 0, rz / torch.clamp(pw, min=1e-30),
-                                torch.zeros_like(pw))
-            u = u + alpha * p
-            r = r - alpha * w
-            z = self.pre.solve(r)
-            rz2 = dots(r, z)
-            beta = torch.where(rz > 0, rz2 / torch.clamp(rz, min=1e-30),
-                               torch.zeros_like(rz))
-            p = z + beta * p
-            rz = rz2
+            state = self.step(m, state)
             it += 1
-        return u * m
+        PCGSolver.solves += 1
+        PCGSolver.iterations += it
+        return state[0] * m
 
 
 # ---------------- policy ----------------

@@ -134,7 +134,8 @@ def load_pc(path: str, device="cuda"):
 
 
 def setup_with_checkpoint(setup_fn, grid, dom_grid, overlap, geneo, dtype,
-                          timers, checkpoint_dir, device, ranks=None):
+                          timers, checkpoint_dir, device, ranks=None,
+                          bt_budget_bytes=None):
     """Run ``setup_fn()`` -> (pc, stats), or load its product from
     ``checkpoint_dir`` (None: always run it).
 
@@ -147,7 +148,10 @@ def setup_with_checkpoint(setup_fn, grid, dom_grid, overlap, geneo, dtype,
     ``ranks`` (parallel.multiproc.Ranks): a multi-rank run, whose ranks
     all run the same replicated setup.  They take a hit only if every
     rank sees the file; on a miss rank 0 alone writes it, and no rank
-    returns before it is in place."""
+    returns before it is in place.
+
+    ``bt_budget_bytes`` (set: part of the key): the structured setup's
+    block-tridiagonal budget, which picks its local solvers."""
     import os
 
     from ..precond.geneo import GenEOStats
@@ -169,7 +173,9 @@ def setup_with_checkpoint(setup_fn, grid, dom_grid, overlap, geneo, dtype,
         shape=grid.shape, dom_grid=tuple(dom_grid), overlap=overlap,
         lvl1=geneo.lvl1, lvl2=geneo.lvl2, tau=geneo.tau,
         gamma=geneo.gamma, optim=geneo.optim, cst=geneo.cst,
-        cut=geneo.cut, dtype=str(dtype))
+        cut=geneo.cut, dtype=str(dtype),
+        **({} if bt_budget_bytes is None
+           else {"bt_budget_bytes": float(bt_budget_bytes)}))
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, f"{kind}_{fp}.pt")
     hit = os.path.exists(path)
