@@ -1,0 +1,10 @@
+"""l1_apply_ms.reuse: device time per level-1 solve, in ms: the device
+operations launched inside the ``l1_solve`` span over the traced ops,
+over its calls (profiler)."""
+
+
+def read(t):
+    tr = t.trace
+    calls = tr.range_calls.get("l1_solve", 0) if tr else 0
+    secs = tr.range_device_s.get("l1_solve", 0.0) if tr else 0.0
+    return 1e3 * secs / calls if calls and secs > 0 else None
