@@ -17,7 +17,8 @@ one of tests/test_torch_cli_multidevice.py), with JAX on the CPU:
    of JAX's PC through JAX's CG and through the port's, and of each
    package's own PC from the start blocks of keys 0-5, then of keys 0-2
    with the eigenvectors converged further (400 LOBPCG iterations,
-   tolerance 1e-9).
+   tolerance 1e-9); the port's set-up on the test's pinned thread count,
+   and for key 0 on 1, 2, 4 and 8 torch threads.
 4. ranks: the structured STRUCTURED_CONFIGS of
    tests/test_torch_cli_multidevice.py on 1, 2, 4 and 8 ranks (devices):
    the float32 inner iterations at the roundoff floor through each
@@ -69,6 +70,7 @@ from geneo4petsc_tpu_torch.models import laplacian  # noqa: E402
 from geneo4petsc_tpu_torch.partition.decompose import \
     partition_and_decompose  # noqa: E402
 from geneo4petsc_tpu_torch.precond import geneo  # noqa: E402
+from _threads import torch_threads  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -151,9 +153,9 @@ def float32_refinement() -> None:
     t.refined_solve, t.jax_refined_solve = spy, jax_spy
     for size in (16, 32):
         for threads in (1, 2, 4, 8):
-            torch.set_num_threads(threads)
             try:
-                t.test_float32_refined_solve_matches_jax(size)
+                with torch_threads(threads):
+                    t.test_float32_refined_solve_matches_jax(size)
                 held = "held"
             except AssertionError:
                 held = "NOT held"
@@ -190,16 +192,6 @@ def soras() -> None:
                     decomp=ref.decomp, a_csr=ref.a_csr)
             finally:
                 jax_lobpcg.jax.random.PRNGKey = prng
-            start = geneo.default_start
-            geneo.default_start = lambda d, n, k, dt: torch.from_numpy(
-                np.array(jax.random.normal(prng(key), (d, n, k),
-                                           jnp.float64))).to(dt)
-            try:
-                pc, _ = geneo.setup_geneo(got.batch, opts(GenEOOptions),
-                                          b=torch.from_numpy(b),
-                                          decomp=got.decomp, a_csr=got.a_csr)
-            finally:
-                geneo.default_start = start
             r = jax_cg_solve(jpc.batch.matvec, jnp.asarray(b), jpc.apply, x0=jpc.x0,
                     rtol=1e-8)
             line = (f"soras key {key}{' converged further' if max_it else ''}"
@@ -210,10 +202,26 @@ def soras() -> None:
                 rc = cg_solve(conv.batch.matvec, torch.from_numpy(b),
                               conv.apply, x0=conv.x0, rtol=1e-8)
                 line += f", JAX PC / port CG {rc.its} ({rc.reason})"
-            rp = cg_solve(pc.batch.matvec, torch.from_numpy(b), pc.apply,
-                          x0=pc.x0, rtol=1e-8)
-            print(f"{line}, port PC / port CG {rp.its} ({rp.reason})",
-                  flush=True)
+            print(line, flush=True)
+            start = geneo.default_start
+            geneo.default_start = lambda d, n, k, dt: torch.from_numpy(
+                np.array(jax.random.normal(prng(key), (d, n, k),
+                                           jnp.float64))).to(dt)
+            counts = (1, 2, 4, 8) if key == 0 and not max_it else \
+                (w.PINNED_THREADS,)
+            try:
+                for threads in counts:
+                    with torch_threads(threads):
+                        pc, _ = geneo.setup_geneo(
+                            got.batch, opts(GenEOOptions),
+                            b=torch.from_numpy(b), decomp=got.decomp,
+                            a_csr=got.a_csr)
+                    rp = cg_solve(pc.batch.matvec, torch.from_numpy(b),
+                                  pc.apply, x0=pc.x0, rtol=1e-8)
+                    print(f"  port PC (set-up on {threads} torch threads) / "
+                          f"port CG {rp.its} ({rp.reason})", flush=True)
+            finally:
+                geneo.default_start = start
 
 
 def _pc_arrays(jpc):

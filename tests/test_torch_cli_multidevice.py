@@ -33,7 +33,6 @@ import re
 
 import numpy as np
 import pytest
-import torch
 from threadpoolctl import threadpool_limits
 
 from geneo4petsc_tpu_torch import cli
@@ -41,7 +40,10 @@ from geneo4petsc_tpu_torch.config import GenEOOptions, KSPOptions
 from geneo4petsc_tpu_torch.parallel import multiproc, probes
 from geneo4petsc_tpu_torch.structured import grid as tgrid
 
-TIMEOUT_S = 600
+from _threads import torch_threads
+from _time_limit import wait_s
+
+pytestmark = pytest.mark.timeout_s(600)
 
 GENERIC_CONFIGS = [
     ("-pc_type geneo -geneo_lvl ASM,1", 4),
@@ -102,27 +104,25 @@ def _launch_plan():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def ranks(tmp_path_factory, request):
     """One launch per rank count; {(n, key): rank 0's probe result}."""
     got = {}
-    for n, cases in sorted(_launch_plan().items()):
+    plan = _launch_plan()
+    wait = wait_s(request.node, waits=len(plan))
+    for n, cases in sorted(plan.items()):
         store = tmp_path_factory.mktemp("ranks") / "store"
         out = multiproc.run_ranks(
             probes.batch, n, args=([call for _key, call in cases],),
-            init_method=f"file://{store}", timeout=TIMEOUT_S)
+            init_method=f"file://{store}", timeout=wait)
         got.update({(n, key): r for (key, _call), r in zip(cases, out)})
     return got
 
 
 def _run(args):
     buf = io.StringIO()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)        # the ranks' own thread counts
-    try:
-        with threadpool_limits(1):
-            rc = cli.run(args + ["--device", "cpu"], out=buf)
-    finally:
-        torch.set_num_threads(threads)
+    # the ranks' own thread counts
+    with torch_threads(1), threadpool_limits(1):
+        rc = cli.run(args + ["--device", "cpu"], out=buf)
     return rc, buf.getvalue()
 
 

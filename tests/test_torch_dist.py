@@ -29,17 +29,19 @@ from geneo4petsc_tpu.partition.decompose import \
 from geneo4petsc_tpu.precond.geneo import setup_geneo as jax_setup
 from geneo4petsc_tpu_torch.parallel import multiproc, probes
 
+from _time_limit import wait_s
+
 N_DEV = 8
 ARGS = "--size 24 --dim 2 --kappa 1000.0 minmax"
 LEVELS = ["ASM,1", "RAS,1", "SORAS,H2", "ASM,E1"]
-TIMEOUT_S = 600
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < N_DEV,
-                                reason="needs the 8-device CPU mesh")
+pytestmark = [pytest.mark.skipif(len(jax.devices()) < N_DEV,
+                                 reason="needs the 8-device CPU mesh"),
+              pytest.mark.timeout_s(480)]
 
 
 @pytest.fixture(scope="module")
-def port(tmp_path_factory):
+def port(tmp_path_factory, request):
     """Every case of the file from one launch of 8 ranks."""
     store = tmp_path_factory.mktemp("ranks") / "store"
     calls = [("generic", (ARGS, 16, 1, LEVELS + ["ASM,H1"]), {}),
@@ -47,7 +49,7 @@ def port(tmp_path_factory):
              ("generic", (ARGS, 16, 1, ["RAS,1"]), {"node_part": False})]
     return multiproc.run_ranks(probes.batch, N_DEV, args=(calls,),
                                init_method=f"file://{store}",
-                               timeout=TIMEOUT_S)
+                               timeout=wait_s(request.node))
 
 
 def _jax(n_dom, overlap, lvl, node_part=True):

@@ -28,6 +28,8 @@ from geneo4petsc_tpu_torch.structured import elastic as el
 from geneo4petsc_tpu_torch.structured import solvers as tsolvers
 from geneo4petsc_tpu_torch.utils.convert import elastic_from_tree
 
+from _threads import torch_threads
+
 CPU = torch.device("cpu")
 
 
@@ -36,10 +38,8 @@ def _one_torch_thread():
     """The port's tensors here are small: run torch on one intra-op
     thread, so that parallel test workers do not oversubscribe the
     cores (threads spinning on tiny ops cost more than they save)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    with torch_threads(1):
+        yield
 
 
 def _rel(a, b):

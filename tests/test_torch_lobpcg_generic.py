@@ -50,6 +50,8 @@ from geneo4petsc_tpu_torch.partition.decompose import (decompose_nodal_fast,
 from geneo4petsc_tpu_torch.partition.kway import partition_structured_grid
 from geneo4petsc_tpu_torch.precond import geneo
 
+from _threads import torch_threads
+
 CPU = torch.device("cpu")
 GEN_ARGS = "--size 16 --dim 2 --kappa 1000. minmax"
 
@@ -412,16 +414,12 @@ def test_float32_refined_solve_matches_jax(size):
     # that depends on torch's intra-op thread count, and the inner count
     # follows it (one thread: 37 at size 32; 2, 4 or 8 threads: 41): run
     # the port on PINNED_THREADS threads whatever the runner gives torch
-    threads = torch.get_num_threads()
-    torch.set_num_threads(PINNED_THREADS)
-    try:
+    with torch_threads(PINNED_THREADS):
         pc, st = geneo.setup_geneo(got.batch, opts, decomp=got.decomp,
                                    a_csr=got.a_csr, lobpcg_start=jax_start)
         assert pc.l1_factor.dtype == torch.float32 and pc.eff_hybrid
         r = refined_solve(b, lambda x: b - got.a_csr @ x,
                           make_pc_inner_solver(pc), tol=1e-8, max_outer=14)
-    finally:
-        torch.set_num_threads(threads)
     np.testing.assert_array_equal(st.real_dim_e, ref_st.real_dim_e)
     assert r.converged and ref_r.converged and r.true_res <= 1e-8
     assert r.outer_its == ref_r.outer_its

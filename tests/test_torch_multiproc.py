@@ -14,8 +14,11 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import pytest
+
+from _time_limit import wait_s
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--inpLibA", "laplacian", "--inpLibArg",
@@ -23,7 +26,6 @@ ARGS = ["--inpLibA", "laplacian", "--inpLibArg",
         "--addOverlap", "2", "-pc_type", "geneo", "-geneo_lvl", "ASM,E1",
         "-geneo_cut", "2", "-ksp_type", "cg", "-ksp_rtol", "1e-8",
         "--device", "cpu"]
-TIMEOUT_S = 600
 
 
 def _env(**extra):
@@ -46,7 +48,7 @@ def _solve_line(out):
 
 
 @pytest.fixture(scope="module")
-def by_hand(tmp_path_factory):
+def by_hand(tmp_path_factory, request):
     store = tmp_path_factory.mktemp("rendezvous") / "store"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "geneo4petsc_tpu_torch", *ARGS,
@@ -55,9 +57,11 @@ def by_hand(tmp_path_factory):
         env=_env(GENEO_COORDINATOR=f"file://{store}", GENEO_NUM_PROCS="2",
                  GENEO_PROC_ID=str(pid))) for pid in range(2)]
     outs = []
+    # the two ranks run at once: one wait for both
+    deadline = time.monotonic() + wait_s(request.node)
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT_S))
+            outs.append(p.communicate(timeout=deadline - time.monotonic()))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -67,11 +71,11 @@ def by_hand(tmp_path_factory):
     return outs
 
 
-def test_env_rendezvous_matches_the_one_command_launch(by_hand):
+def test_env_rendezvous_matches_the_one_command_launch(by_hand, request):
     one = subprocess.run(
         [sys.executable, "-m", "geneo4petsc_tpu_torch", *ARGS,
          "--nbDevices", "2"], cwd=ROOT, capture_output=True, text=True,
-        env=_env(), timeout=TIMEOUT_S)
+        env=_env(), timeout=wait_s(request.node))
     assert one.returncode == 0, one.stderr
     got = _solve_line(by_hand[0][0])
     assert got == _solve_line(one.stdout)

@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+from _time_limit import wait_s
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "geneo4petsc_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "geneo4petsc_tpu")
@@ -36,9 +38,10 @@ print(len(names))
 """
 
 
-def test_every_module_imports_with_jax_blocked():
+def test_every_module_imports_with_jax_blocked(request):
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
-                          capture_output=True, text=True, timeout=300,
+                          capture_output=True, text=True,
+                          timeout=wait_s(request.node),
                           check=False,
                           env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr
@@ -98,12 +101,12 @@ assert not bad, bad
     "geneo4petsc_tpu_torch.parallel.probes",
     "geneo4petsc_tpu_torch.utils.roofline",
     "geneo4petsc_tpu_torch.perf.measure_coarse"])
-def test_new_module_imports_alone_with_jax_blocked(module):
+def test_new_module_imports_alone_with_jax_blocked(module, request):
     """Each module of the elastic backend, the library surface, the block
     layout, the multi-rank layouts and the measuring tools imports on its
     own in a process where JAX cannot be imported."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                           cwd=REPO, capture_output=True, text=True,
-                          timeout=300, check=False,
+                          timeout=wait_s(request.node), check=False,
                           env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr

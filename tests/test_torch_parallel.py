@@ -28,17 +28,19 @@ from geneo4petsc_tpu.partition.decompose import \
 from geneo4petsc_tpu.precond.geneo import setup_geneo as jax_setup
 from geneo4petsc_tpu_torch.parallel import multiproc, probes
 
+from _time_limit import wait_s
+
 N_DEV = 8
 ARGS = "--size 16 --dim 2 --kappa 1000. minmax"
 LEVELS = ["ASM,0", "ASM,1", "ASM,H1", "SORAS,2", "RAS,1"]
-TIMEOUT_S = 600
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < N_DEV,
-                                reason="needs 8 virtual devices")
+pytestmark = [pytest.mark.skipif(len(jax.devices()) < N_DEV,
+                                 reason="needs 8 virtual devices"),
+              pytest.mark.timeout_s(480)]
 
 
 @pytest.fixture(scope="module")
-def port(tmp_path_factory):
+def port(tmp_path_factory, request):
     store = tmp_path_factory.mktemp("ranks") / "store"
     kw = {"layout": "replicated", "rtol": 1e-10}
     calls = [("generic", (ARGS, 6, 1, LEVELS), kw),
@@ -50,7 +52,7 @@ def port(tmp_path_factory):
               dict(kw, model="graph"))]
     return multiproc.run_ranks(probes.batch, N_DEV, args=(calls,),
                                init_method=f"file://{store}",
-                               timeout=TIMEOUT_S)
+                               timeout=wait_s(request.node))
 
 
 @pytest.mark.parametrize("lvl", LEVELS)

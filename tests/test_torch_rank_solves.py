@@ -34,9 +34,12 @@ from geneo4petsc_tpu_torch.structured.elastic import elastic_grid
 from geneo4petsc_tpu_torch.structured.grid import laplacian_grid
 from geneo4petsc_tpu_torch.structured.solve import solve_structured
 
+from _time_limit import wait_s
+
 N_RANKS = 8
-TIMEOUT_S = 600
 GRID = dict(size=16, dim=3, kappa_max=100.0, interp="minmax")
+
+pytestmark = pytest.mark.timeout_s(600)
 
 
 def _opts(lvl, cls=GenEOOptions):
@@ -66,7 +69,7 @@ def _checkpoint_calls(directory):
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def ranks(tmp_path_factory, request):
     ckpt = str(tmp_path_factory.mktemp("checkpoint"))
     calls = [("solve", ("structured", (laplacian_grid(**GRID), (2, 2, 2), 1),
                         _float64_kw(n_devices=N_RANKS)), {})]
@@ -74,7 +77,7 @@ def ranks(tmp_path_factory):
     store = tmp_path_factory.mktemp("ranks") / "store"
     got = multiproc.run_ranks(probes.batch, N_RANKS, args=(calls,),
                               init_method=f"file://{store}",
-                              timeout=TIMEOUT_S)
+                              timeout=wait_s(request.node))
     return {"float64": got[0], "checkpoint": got[1:],
             "files": sorted(os.listdir(ckpt))}
 

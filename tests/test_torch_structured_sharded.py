@@ -37,7 +37,8 @@ from geneo4petsc_tpu.structured.sharded import (make_mesh, shard_elastic,
                                                 shard_structured)
 from geneo4petsc_tpu_torch.parallel import multiproc, probes
 
-TIMEOUT_S = 600
+from _time_limit import wait_s
+
 # (ranks, kind, size, boxes, level, CG rtol); the probe's other settings
 # are tests/test_structured_sharded.py's
 CASES = {
@@ -48,8 +49,9 @@ CASES = {
     "layers": (8, "laplacian", 16, (4, 4, 4), "ASM,1", 1e-10),
 }
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
-                                reason="needs the 8-device CPU mesh")
+pytestmark = [pytest.mark.skipif(len(jax.devices()) < 8,
+                                 reason="needs the 8-device CPU mesh"),
+              pytest.mark.timeout_s(600)]
 
 
 def _probe_call(name):
@@ -61,15 +63,17 @@ def _probe_call(name):
 
 
 @pytest.fixture(scope="module")
-def port(tmp_path_factory):
+def port(tmp_path_factory, request):
     """Every case of the file from one launch per rank count."""
     out = {}
-    for n in sorted({c[0] for c in CASES.values()}):
+    counts = sorted({c[0] for c in CASES.values()})
+    wait = wait_s(request.node, waits=len(counts))
+    for n in counts:
         names = [k for k, c in CASES.items() if c[0] == n]
         store = tmp_path_factory.mktemp("ranks") / "store"
         got = multiproc.run_ranks(
             probes.batch, n, args=([_probe_call(k) for k in names],),
-            init_method=f"file://{store}", timeout=TIMEOUT_S)
+            init_method=f"file://{store}", timeout=wait)
         out.update({k: g[CASES[k][4]] for k, g in zip(names, got)})
     return out
 
