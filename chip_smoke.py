@@ -41,7 +41,10 @@ with a non-zero exit code and no result line:
               host), max error against x = 1..n, dim_e, iterations, TIME
               lines and peak device memory, beside the JAX package's TPU
               record as a reference.  K1 and K2 are not on this path:
-              their counts, zeroed before it, stay 0.
+              their counts, zeroed before it, stay 0.  The LOBPCG start
+              block is drawn on the card (csrc/start_draw.cu): the draw
+              kernel must have launched (once per pencil and domain
+              chunk).
 8. large    — the JAX package's `bench.py large` configuration through
               the port's library, at full width: laplacian --size 512
               --dim 2 --kappa 10000. minmax (262,144 DOF), the brick
@@ -74,7 +77,10 @@ with a non-zero exit code and no result line:
               timed in turns with torch.bmm (the library call for the
               same product, which the port never calls on the card) and
               with its plain version by CUDA events, beside its bound
-              from the bytes and operations (roofline.bound_ms).
+              from the bytes and operations (roofline.bound_ms); and the
+              start-block draw at every shape phase structured gave it
+              ([64, 2, 195112] float32), held against and timed beside
+              its plain version, with its bound (roofline.start_draw_model).
 
 11. api     — the library entry point (api.make_batch, geneo_setup,
               geneo_solve: the PCGenEOSetup twin) on the JAX package's
@@ -189,7 +195,8 @@ path-shapes runs last, over the shapes of phases 5, 8, 9, 11, 12 and
 It then prints its wall seconds, one JSON line with every kernel's
 launches (the sum over the phases that drive a main path, and each
 phase's count), and its error, path, times and bound at the slice's
-shape and, under "shapes", at every shape of phase 10; and last the
+shape (the draw's: phase structured's) and, under "shapes", at every
+shape of phase 10; and last the
 result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -699,6 +706,67 @@ def phase_path_shapes(seen: list) -> dict:
     return rows
 
 
+def phase_draw_shapes(draws: list) -> list:
+    """The start-block draw at every (d, k, n, dtype name) phase
+    structured gave it, on a mask of ones (the kernel's work does not
+    depend on the mask's values): held against its plain version on the
+    card (2 units in the last place in float32, 1e-14 relative in
+    float64; the same bits twice), then timed in turns with it, beside
+    its bound.  Returns one row per shape."""
+    import torch
+
+    from geneo4petsc_tpu_torch.ops import start_draw as tdraw
+    from geneo4petsc_tpu_torch.utils import roofline
+    from geneo4petsc_tpu_torch.utils.cuda_timing import time_in_turns
+
+    peaks = _peaks()
+    rows = []
+    for d, k, n, dtype_name in sorted(set(draws)):
+        dtype = getattr(torch, dtype_name)
+        mask = torch.ones((d, n), dtype=dtype, device="cuda")
+
+        def kern():
+            return tdraw.start_draw(mask, k)
+
+        def plain():
+            return tdraw.start_draw_plain(mask, k)
+
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        where = f"[{d},{k},{n}] {dtype_name}"
+        ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"),
+                                                        dtype=dtype,
+                                                        device="cuda"))
+        ulps = float(((got - want).abs() / (ulp - want.abs())).max())
+        rel_err = float((got - want).abs().max() / want.abs().max())
+        check(ulps <= 2 if dtype == torch.float32 else rel_err <= 1e-14,
+              f"start_draw {where} disagrees with its plain version: "
+              f"{ulps:.1f} ulp, {rel_err:.3e} relative")
+        check(torch.equal(got, again),
+              f"start_draw {where}: two launches gave different bits")
+        del got, again, want
+        moved, flops = roofline.start_draw_model(d, k, n,
+                                                 mask.element_size())
+        bound, by = roofline.bound_ms(moved, flops, dtype, peaks)
+        p, t = time_in_turns(plain, kern, reps=5, rounds=3)
+        share = bound / t["ms"]
+        print(f"[path-shapes] start_draw {where} (structured): max "
+              f"{ulps:.1f} ulp / rel err {rel_err:.3e}; kernel "
+              f"{t['ms']:.4f} ms [{t['min_ms']:.4f}, {t['max_ms']:.4f}], "
+              f"plain {p['ms']:.4f} ms, bound {bound:.4f} ms ({moved} B, "
+              f"{by}), share of bound {share:.3f}", flush=True)
+        check(share <= 1.0, f"start_draw {where}: {t['ms']:.4f} ms is "
+                            f"under the bound {bound:.4f} ms")
+        rows.append(dict(
+            phases=["structured"], shape=[d, k, n], dtype=dtype_name,
+            max_ulps=ulps, ms=t["ms"], ms_min=t["min_ms"], ms_max=t["max_ms"],
+            plain_ms=p["ms"], bound_ms=bound, bound_by=by,
+            share_of_bound=share))
+        del mask
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _run_cli(args: list[str]) -> tuple[str, dict]:
     from geneo4petsc_tpu_torch import cli
 
@@ -820,10 +888,13 @@ def phase_structured() -> dict:
 
     from geneo4petsc_tpu_torch import cli
     from geneo4petsc_tpu_torch.ops import local_kernels as lk
+    from geneo4petsc_tpu_torch.ops.start_draw import start_draw
+    from geneo4petsc_tpu_torch.structured import geneo as tgeneo
     from geneo4petsc_tpu_torch.structured import solve as ssolve
     from geneo4petsc_tpu_torch.structured.grid import laplacian_grid
 
-    # keep the CLI's solve output, for the error against x = 1..n
+    # keep the CLI's solve output, for the error against x = 1..n, and
+    # the shapes of the start-block draws
     seen = {}
     solve = ssolve.solve_structured
 
@@ -831,20 +902,30 @@ def phase_structured() -> dict:
         seen["out"] = solve(*args, **kw)
         return seen["out"]
 
+    draws = []
+
+    def draw(mask, k):
+        draws.append((mask.shape[0], k, mask.shape[1], str(mask.dtype)[6:]))
+        return start_draw(mask, k)
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lk.fused_local_solve.launches = 0
     lk.block_matvec.launches = 0
+    drawn = start_draw.launches
     ssolve.solve_structured = keep
+    tgeneo.start_draw = draw
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
         rc = cli.run(STRUCTURED_ARGS + ["--device", "cuda"], out=buf)
     finally:
         ssolve.solve_structured = solve
+        tgeneo.start_draw = start_draw
     wall = time.perf_counter() - t0
     launches = {"fused_local_solve": lk.fused_local_solve.launches,
                 "block_matvec": lk.block_matvec.launches}
+    drawn = start_draw.launches - drawn
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log = buf.getvalue()
     for line in log.splitlines():
@@ -872,8 +953,9 @@ def phase_structured() -> dict:
           f"true_res {out.true_res:.3e} (host float64 recheck "
           f"{host_res:.3e} in {t_host:.1f} s), max |x - x_true| / n "
           f"{err:.3e}; CLI wall {wall:.2f} s, peak device memory "
-          f"{peak_gb:.2f} GB; K1/K2 launches on this path {launches}",
-          flush=True)
+          f"{peak_gb:.2f} GB; K1/K2 launches on this path {launches}; "
+          f"start-block draw launches {drawn} at [d, k, n] "
+          f"{sorted(set(draws))}", flush=True)
     print(f"[structured] reference, not a target — the JAX package on a "
           f"TPU v5e (BENCH_r05.json): {JAX_TPU_RECORD}", flush=True)
     check(md is not None and int(md.group(1)) == n,
@@ -886,6 +968,9 @@ def phase_structured() -> dict:
           "the preconditioner did not live on the card")
     check(launches == {"fused_local_solve": 0, "block_matvec": 0},
           f"K1/K2 launched on the structured path: {launches}")
+    check(drawn == len(draws) >= 1,
+          f"start-block draw launched {drawn} times for {len(draws)} draws")
+    info["draws"] = draws
     check(peak_gb >= 1.0, f"peak device memory {peak_gb:.2f} GB: the "
                           "structured operators did not live on the card")
     return info
@@ -903,7 +988,7 @@ def _battery_case(name, kind, lvl, extra):
     import torch
 
     from geneo4petsc_tpu_torch.config import GenEOOptions, KSPOptions
-    from geneo4petsc_tpu_torch.perf.lobpcg_start import jax_start
+    from geneo4petsc_tpu_torch.ops.start_draw import jax_start
     from geneo4petsc_tpu_torch.structured import elastic
     from geneo4petsc_tpu_torch.structured import grid as sgrid
     from geneo4petsc_tpu_torch.structured.solve import solve_structured
@@ -1552,7 +1637,7 @@ def _elastic_parity_opts(lvl: str, eig: str):
 def phase_elastic_parity() -> None:
     import torch
 
-    from geneo4petsc_tpu_torch.perf.lobpcg_start import jax_start
+    from geneo4petsc_tpu_torch.ops.start_draw import jax_start
     from geneo4petsc_tpu_torch.structured.elastic import (elastic_grid,
                                                           solve_elastic)
 
@@ -2020,8 +2105,18 @@ def main() -> int:
     by_phase["slice"], slice_shape, slice_info = phase_slice()
     phase_structured_parity()
     by_phase["battery"] = phase_battery()
-    phase_structured()
-    by_phase["nonsep"] = phase_nonsep()["launches"]
+    from geneo4petsc_tpu_torch.ops.start_draw import start_draw
+    draws_by_phase = {}
+
+    def drawing(name, phase, *args):
+        """Run a phase; keep the start-block draw launches it made."""
+        before = start_draw.launches
+        out = phase(*args)
+        draws_by_phase[name] = start_draw.launches - before
+        return out
+
+    structured = drawing("structured", phase_structured)
+    by_phase["nonsep"] = drawing("nonsep", phase_nonsep)["launches"]
     large = phase_large(slice_info)
     by_phase["large"] = large["launches"]
     by_phase["generic-family"], family_shapes = phase_generic_family()
@@ -2029,8 +2124,8 @@ def main() -> int:
     by_phase["chk-dbg"], chk_shapes = phase_chk_dbg()
     phase_elastic_parity()
     phase_elastic()
-    layouts = phase_block_layout()
-    phase_roofline(layouts)
+    layouts = drawing("block-layout", phase_block_layout)
+    drawing("roofline", phase_roofline, layouts)
     for r in layouts.values():
         del r["out"], r["grid"]
     phase_nccl_structured(layouts["global"])
@@ -2040,6 +2135,7 @@ def main() -> int:
     at_shapes = phase_path_shapes([slice_shape, large["shape"],
                                    *family_shapes, *api_shapes,
                                    *chk_shapes, *nccl_shapes])
+    draw_rows = phase_draw_shapes(structured["draws"])
 
     sources = {"fused_local_solve": ("geneo4petsc_tpu_torch/csrc/"
                                      "fused_local_solve.cu",
@@ -2063,6 +2159,16 @@ def main() -> int:
                      **{k: v for k, v in at_slice.items()
                         if k not in ("phases", "shape", "dtype")},
                      "shapes": at_shapes[name]})
+    # the start-block draw replaces no TPU kernel (XLA draws JAX's);
+    # its times at phase structured's shape
+    rows.append({"name": "start_draw", "route": "cuda",
+                 "source": "geneo4petsc_tpu_torch/csrc/start_draw.cu",
+                 "replaces": None,
+                 "launches": sum(draws_by_phase.values()),
+                 "launches_by_phase": draws_by_phase,
+                 **{k: v for k, v in draw_rows[0].items()
+                    if k not in ("phases", "shape", "dtype")},
+                 "shapes": draw_rows})
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -107,4 +107,8 @@ def load() -> ctypes.CDLL:
     lib.g4p_fused_local_solve.restype = c_int
     lib.g4p_block_matvec.argtypes = [vp, vp, vp, i64, i64, c_int, *plan]
     lib.g4p_block_matvec.restype = c_int
+    # mask, out, d, k, n, is_f64, grid x and y, threads, the stream
+    lib.g4p_start_draw.argtypes = [vp, vp, i64, i64, i64, c_int, c_int,
+                                   c_int, c_int, vp]
+    lib.g4p_start_draw.restype = c_int
     return lib

@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from ..config import GenEOOptions
 from ..ops import batched_linalg as bl
 from ..ops.batched_linalg import require_full_f32
-from ..ops.lobpcg import default_start, matfree_lobpcg
+from ..ops.lobpcg import matfree_lobpcg
+from ..ops.start_draw import start_draw
 from ..precond.geneo import (GenEOStats, _gamma_loc, factor_e,
                              prune_dependent_columns,
                              warn_coarse_replication)
@@ -50,6 +51,10 @@ from .grid import GlobalStencil, global_stencil
 
 # device memory budget of one LOBPCG domain chunk (~16 block panels)
 LOBPCG_BUDGET_BYTES = 6e9
+# The LOBPCG start of a setup given no ``lobpcg_start``: None draws the
+# JAX package's block on the setup's device (ops.start_draw); a
+# ``lobpcg_start`` callable set here serves every such setup instead.
+default_start = None
 
 
 class LocalSchwarz:
@@ -378,9 +383,14 @@ def setup_structured(sd: StructuredDecomposition, opts: GenEOOptions,
     matrix-free eigensolve -> Z -> E, on ``device`` except the tiny 1-D
     eigendecompositions and the coarse factorization (host float64).
 
-    ``lobpcg_start(d, n_loc, k, dtype)`` gives the [d, n_loc, k] Gaussian
-    start block of one LOBPCG run (default: ``default_start``); the same
-    draw starts every domain chunk, as in the JAX package.
+    The Gaussian start block of each LOBPCG run is by default the JAX
+    package's, jax.random.normal(PRNGKey(0), (d, n_loc, k)), written
+    masked on ``device`` in ``dtype`` (``ops.start_draw``: one kernel
+    launch per pencil and domain chunk on a card, the same numbers on
+    every device); ``lobpcg_start(d, n_loc, k, dtype)``, when given,
+    returns that [d, n_loc, k] block instead (any device; it is moved to
+    ``device`` and masked here).  The same draw starts every domain
+    chunk, as in the JAX package.
     ``bt_budget_bytes``: the factor memory allowed to the exact
     block-tridiagonal route of every general solve (the level-1 solver
     and the shift-invert preconditioners; default
@@ -473,8 +483,12 @@ def setup_structured(sd: StructuredDecomposition, opts: GenEOOptions,
     def run_lobpcg(a_st, b_st, maskf_, t_tree, k, x0_prev=None):
         a_o, b_o, t_o = _block_ops(a_st, b_st, maskf_, t_tree)
         d = maskf_.shape[0]
-        x0 = torch.as_tensor(start(d, n_loc, k, dtype))
-        x0 = x0.to(device, dtype).transpose(1, 2) * maskf_.reshape(d, 1, -1)
+        mask = maskf_.reshape(d, n_loc)
+        if start is None:
+            x0 = start_draw(mask.contiguous(), k)
+        else:
+            x0 = torch.as_tensor(start(d, n_loc, k, dtype))
+            x0 = x0.to(device, dtype).transpose(1, 2) * mask[:, None]
         x0 = t_o(x0)
         if x0_prev is not None:
             # warm restart: keep the previously converged block, top up

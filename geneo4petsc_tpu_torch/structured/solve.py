@@ -107,7 +107,9 @@ def solve_structured(grid: StructuredGrid, dom_grid, overlap: int,
     the JAX package's accelerator rule): keep x/b/r on the device in
     float64 with the device stencil as the truth operator, instead of
     the host route (x on the host, NumPy stencil residuals).
-    ``lobpcg_start``: see setup_structured.  ``checkpoint_dir``: cache
+    ``lobpcg_start``: the LOBPCG start block callback of setup_structured;
+    without one, JAX's PRNGKey(0) draw is written masked on ``device``
+    (``ops.start_draw``).  ``checkpoint_dir``: cache
     the finished setup there and load it on a warm hit
     (utils.checkpoint.setup_with_checkpoint).
 

@@ -216,6 +216,15 @@ def lobpcg_model(k: int, loc: int, lsq: int, isz: int) -> tuple[int, int]:
             (3 * 14 * 3 * k + 4 * lsq * k + 8 * (3 * k) ** 2) * loc)
 
 
+def start_draw_model(d: int, k: int, n: int, isz: int) -> tuple[int, int]:
+    """(bytes, operations) of the LOBPCG start-block draw
+    (ops.start_draw, csrc/start_draw.cu) of a [d, n] mask into [d, k, n]:
+    the mask read once and the block written once.  The Threefry hash's
+    ~100 integer operations an element have no rate in ``PEAKS``, so the
+    bound is the bytes'."""
+    return (k + 1) * d * n * isz, 0
+
+
 def tau_pencils(sd, tau: float, cut: int, dtype=torch.float32,
                 device="cuda") -> tuple:
     """The GenEO-1 tau pencil of setup_structured: (A_Neu, D A_Dir D,

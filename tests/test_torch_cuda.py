@@ -229,6 +229,85 @@ def test_structured_solve_on_cuda_matches_cpu(cuda, device_refine):
     assert got.refined.outer_its == ref.refined.outer_its
 
 
+# ---------------- the LOBPCG start block drawn on the card ----------------
+
+def _ulp_ok(got, want, ulps):
+    """|got - want| within ``ulps`` units in the last place of want."""
+    spacing = torch.from_numpy(np.spacing(np.abs(want.cpu().numpy())))
+    return bool(((got - want).abs().cpu() <= ulps * spacing).all())
+
+
+@pytest.mark.parametrize("case", ["lap10m-f32", "ragged-f64"])
+def test_start_draw_kernel_matches_plain(cuda, case):
+    """The start-block kernel against its plain version on the card: at
+    lap10m's shape ([64, 2, 195112] float32, the mask of its 4x4x4
+    boxes with overlap 2) within 2 units in the last place (the same
+    log1pf; float64-rounded against fused multiply-adds), and at a
+    float64 shape with a ragged n within 1e-14 relative, against the CPU
+    route too; masked slots are zeros and two launches give the same
+    bits."""
+    from geneo4petsc_tpu_torch.ops import start_draw as tdraw
+
+    if case == "lap10m-f32":
+        _, f = _structured(216, 3, (4, 4, 4), 2, cuda, torch.float32)
+        mask, k = f.mask.to(torch.float32).reshape(64, -1), 2
+        assert mask.shape == (64, 195112)
+    else:
+        mask = torch.from_numpy(np.random.default_rng(4).random(
+            (5, 12345)) > 0.3).to(cuda, torch.float64)
+        k = 3
+    launches = tdraw.start_draw.launches
+    got = tdraw.start_draw(mask, k)
+    again = tdraw.start_draw(mask, k)
+    torch.cuda.synchronize()
+    assert tdraw.start_draw.launches == launches + 2
+    assert got.shape == (mask.shape[0], k, mask.shape[1])
+    assert got.is_cuda and got.is_contiguous() and torch.equal(got, again)
+    assert (got.transpose(1, 2)[mask == 0] == 0).all()
+    want = tdraw.start_draw_plain(mask, k)
+    if mask.dtype == torch.float32:
+        assert _ulp_ok(got, want, 2)
+    else:
+        assert _rel(got, want) <= 1e-14
+        assert _rel(got.cpu(), tdraw.start_draw(mask.cpu(), k)) <= 1e-14
+
+
+def test_start_draw_launches_once_per_pencil_chunk(cuda, monkeypatch):
+    """setup_structured without a lobpcg_start launches the kernel once
+    per LOBPCG run: ASM,E1 (one pencil) over 8 domains in chunks of 3 is
+    3 launches; a given lobpcg_start launches none."""
+    from geneo4petsc_tpu_torch.ops import start_draw as tdraw
+    from geneo4petsc_tpu_torch.ops.start_draw import jax_start
+    from geneo4petsc_tpu_torch.structured import geneo as tgeneo
+
+    sd, _ = _structured(16, 3, (2, 2, 2), 2, "cpu")
+    opts = GenEOOptions()
+    opts.lvl1, opts.lvl2 = "ASM", "E1"
+    opts.els2.type, opts.cut = "lobpcg", 2
+    per_dom = int(np.prod(sd.local_shape)) * 16 * 2 * 4
+    monkeypatch.setattr(tgeneo, "LOBPCG_BUDGET_BYTES", 3 * per_dom)
+    launches = tdraw.start_draw.launches
+    _, st = tgeneo.setup_structured(sd, opts, dtype=torch.float64,
+                                    device=cuda)
+    assert tdraw.start_draw.launches == launches + 3
+    _, st_cb = tgeneo.setup_structured(sd, opts, dtype=torch.float64,
+                                       device=cuda, lobpcg_start=jax_start)
+    assert tdraw.start_draw.launches == launches + 3
+    np.testing.assert_array_equal(st.real_dim_e, st_cb.real_dim_e)
+
+
+def test_start_draw_raises_on_a_refused_launch(cuda):
+    """A launch the card refuses (2048 threads a block) comes back as the
+    C entry point's cudaGetLastError and raises; the card works on."""
+    from geneo4petsc_tpu_torch.ops import start_draw as tdraw
+
+    mask = torch.ones((2, 300), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tdraw._start_draw_cuda(mask, 2, threads=2048)
+    assert _ulp_ok(tdraw.start_draw(mask, 2), tdraw.start_draw_plain(mask, 2),
+                   2)
+
+
 def _generic_batch(device, args="--size 16 --dim 2 --kappa 1000. minmax",
                    n_dom=4, dtype=torch.float64):
     from geneo4petsc_tpu_torch.assembly.assemble import assemble

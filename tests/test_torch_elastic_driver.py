@@ -24,7 +24,7 @@ from geneo4petsc_tpu.config import GenEOOptions as JaxGenEOOptions
 from geneo4petsc_tpu.structured import elastic as jel
 from geneo4petsc_tpu_torch.config import GenEOOptions
 from geneo4petsc_tpu_torch.krylov.refine import refined_solve
-from geneo4petsc_tpu_torch.perf.lobpcg_start import jax_start
+from geneo4petsc_tpu_torch.ops.start_draw import jax_start
 from geneo4petsc_tpu_torch.structured import elastic as el
 from geneo4petsc_tpu_torch.utils.convert import elastic_from_tree
 

@@ -29,13 +29,16 @@ from geneo4petsc_tpu.structured import local_ops as jlo
 from geneo4petsc_tpu.structured import solvers as jsolvers
 from geneo4petsc_tpu.structured.decompose import \
     StructuredDecomposition as JSD
+from geneo4petsc_tpu_torch.config import GenEOOptions
 from geneo4petsc_tpu_torch.krylov import cg as tcg
 from geneo4petsc_tpu_torch.krylov import refine as tref
 from geneo4petsc_tpu_torch.models import laplacian as tlap
 from geneo4petsc_tpu_torch.ops.lobpcg import matfree_lobpcg as t_lobpcg
-from geneo4petsc_tpu_torch.perf.lobpcg_start import jax_start
+from geneo4petsc_tpu_torch.ops import start_draw as tdraw
+from geneo4petsc_tpu_torch.ops.start_draw import jax_start
 from geneo4petsc_tpu_torch.structured import block_tridiag as tbt
 from geneo4petsc_tpu_torch.structured import fdm as tfdm
+from geneo4petsc_tpu_torch.structured import geneo as tgeneo
 from geneo4petsc_tpu_torch.structured import grid as tgrid
 from geneo4petsc_tpu_torch.structured import halo as thalo
 from geneo4petsc_tpu_torch.structured import local_ops as tlo
@@ -337,9 +340,9 @@ def test_matfree_lobpcg_matches_jax_from_the_same_start():
 
 
 def test_rebuilt_jax_start_block_matches_jax():
-    """The measuring tool's JAX start block (Threefry bits and XLA's
-    float32 erfinv, rebuilt with torch) against jax.random.normal: the
-    same draw to 3 units in the last place."""
+    """The JAX start block rebuilt with torch (ops.start_draw: Threefry
+    bits and XLA's float32 erfinv) against jax.random.normal: the same
+    draw to 3 units in the last place."""
     shape = (4, 3000, 2)
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(0), shape,
                                         jnp.float32))
@@ -347,6 +350,128 @@ def test_rebuilt_jax_start_block_matches_jax():
     assert got.dtype == np.float32 and got.shape == shape
     assert (np.abs(got - want) <= 3 * np.spacing(np.abs(want))).all()
     assert (got == want).mean() >= 0.9
+
+
+# (d, n, k): n = 1001 is no multiple of the kernel's 256 threads
+START_SHAPES = [(3, 1001, 2), (2, 1536, 3)]
+
+
+def _jax_masked(shape, dtype, mask):
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(0), shape, jdt))
+    return np.swapaxes(x, 1, 2) * mask.numpy()[:, None, :]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", START_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_start_draw_on_cpu_is_jax_draw_masked(shape, dtype):
+    """The structured path's default start block on a CPU tensor (the
+    plain version) against jax.random.normal(PRNGKey(0), (d, n, k))
+    transposed to [d, k, n] and masked: within 3 units in the last place
+    in float32 (XLA's own log1p is not rebuilt; 99% equal to fully
+    compiled JAX, 95% under this file's jax_disable_most_optimizations,
+    which fuses no multiply-add) and 1e-14 relative in float64 (JAX's
+    float64 erf^-1 holds that up to |N| ~ 3.75, first passed at flat index
+    81151, beyond these shapes; see the next test).  Masked slots are
+    zeros; nothing is launched."""
+    d, n, k = shape
+    mask = torch.from_numpy(
+        np.random.default_rng(3).random((d, n)) > 0.25).to(dtype)
+    launches = tdraw.start_draw.launches
+    got = tdraw.start_draw(mask, k)
+    assert tdraw.start_draw.launches == launches
+    assert got.shape == (d, k, n) and got.dtype == dtype
+    assert got.is_contiguous()
+    want = _jax_masked(shape, dtype, mask)
+    got = got.numpy()
+    assert (got.transpose(0, 2, 1)[~mask.bool().numpy()] == 0).all()
+    if dtype == torch.float32:
+        assert (np.abs(got - want) <= 3 * np.spacing(np.abs(want))).all()
+        assert (got == want).mean() >= 0.95
+    else:
+        live = want != 0
+        assert (np.abs(got - want)[live] / np.abs(want[live])).max() <= 1e-14
+
+
+def test_start_draw_float64_tails_are_the_exact_erfinv():
+    """Over the first 2.56M draws the rebuilt float64 draw stays within
+    1e-15 relative of sqrt(2) erf^-1(u) computed by scipy; JAX's departs
+    from it by more than 1e-14 from |N| ~ 3.75 on (up to 3e-12 relative
+    at |N| 5.2): there JAX's float64 erf^-1 is the less accurate one."""
+    from scipy.special import erfinv
+
+    shape = (64, 20000, 2)
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(0), shape,
+                                        jnp.float64)).ravel()
+    got = tdraw.jax_start(*shape, torch.float64).numpy().ravel()
+    b1, b2 = tdraw._bits(got.size, "cpu")
+    mant = ((b1 << 20) | (b2 >> 12)) & ((1 << 52) - 1)
+    u = ((mant | 0x3FF0000000000000).view(torch.float64) - 1.0).numpy()
+    lo = np.nextafter(-1.0, 0.0)
+    exact = np.sqrt(2.0) * erfinv(np.maximum(lo, u * 2.0 + lo))
+    assert (np.abs(got - exact) / np.abs(exact)).max() <= 1e-15
+    rel_jax = np.abs(want - exact) / np.abs(exact)
+    assert rel_jax[np.abs(exact) < 3.5].max() <= 1e-14
+    assert 1e-14 < rel_jax.max() <= 3e-12
+
+
+def _lobpcg_setup(monkeypatch, **kw):
+    """setup_structured on a 3-D laplacian, float64, ASM,E1 with LOBPCG
+    (cut 2, 50 iterations): the stats and the eigenvalues of each LOBPCG
+    run."""
+    runs = []
+
+    def spy(*a, **k):
+        out = t_lobpcg(*a, **k)
+        runs.append(out[0].numpy().copy())
+        return out
+
+    monkeypatch.setattr(tgeneo, "matfree_lobpcg", spy)
+    opts = GenEOOptions()
+    opts.lvl1, opts.lvl2 = "ASM", "E1"
+    opts.els2.type, opts.els2.max_it, opts.cut = "lobpcg", 50, 2
+    sd = TSD(tgrid.laplacian_grid(10, dim=3, kappa_max=1e4,
+                                  interp="minmax"), (2, 2, 2), 1)
+    _, st = tgeneo.setup_structured(sd, opts, dtype=torch.float64,
+                                    device=CPU, **kw)
+    return st, runs
+
+
+def test_setup_structured_default_start_is_jax_start(monkeypatch):
+    """With no lobpcg_start the structured set-up starts LOBPCG from JAX's
+    PRNGKey(0) draw: the same coarse space as with
+    lobpcg_start=jax_start."""
+    launches = tdraw.start_draw.launches
+    got, got_w = _lobpcg_setup(monkeypatch)
+    want, want_w = _lobpcg_setup(monkeypatch, lobpcg_start=jax_start)
+    assert tdraw.start_draw.launches == launches
+    assert got.real_dim_e.sum() > 0
+    np.testing.assert_array_equal(got.real_dim_e, want.real_dim_e)
+    np.testing.assert_array_equal(got.nicolaides, want.nicolaides)
+    assert len(got_w) == len(want_w) >= 1
+    for g, w in zip(got_w, want_w):
+        np.testing.assert_allclose(g, w, rtol=1e-10)
+    for g, w in zip(got.eigenvalues, want.eigenvalues):
+        np.testing.assert_allclose(g, w, rtol=1e-10)
+
+
+def test_lobpcg_start_callback_keeps_its_path(monkeypatch):
+    """A caller's lobpcg_start is called for each LOBPCG run with (d,
+    n_loc, k, dtype), its [d, n_loc, k] block is used as given, and the
+    draw's launch count does not move."""
+    calls = []
+
+    def start(d, n, k, dtype):
+        calls.append((d, n, k, dtype))
+        return jax_start(d, n, k, dtype)
+
+    launches = tdraw.start_draw.launches
+    got, _ = _lobpcg_setup(monkeypatch, lobpcg_start=start)
+    assert tdraw.start_draw.launches == launches
+    assert calls == [(8, 7 * 7 * 7, 2, torch.float64)]
+    assert got.real_dim_e.sum() > 0
 
 
 def _spd(n, seed):
