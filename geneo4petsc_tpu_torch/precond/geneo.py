@@ -69,6 +69,11 @@ class GenEOStats:
     # [n_dom] LOBPCG relative residual, max over the kept pairs
     # (None for the dense-eigh route)
     lobpcg_res: np.ndarray | None = None
+    # per GenEO pencil of the structured path ("tau", "gamma"): the
+    # (solves, iterations) of the PCG that preconditions its
+    # shift-invert, None for a pencil whose preconditioner runs no PCG
+    # (None on the routes that solve no pencil)
+    shift_invert_pcg: dict | None = None
 
 
 @dataclass(frozen=True)

@@ -661,10 +661,16 @@ def setup_structured(sd: StructuredDecomposition, opts: GenEOOptions,
                    ("gamma", rob, b_dad, thr2, gl, t2)]
 
     runs = []
+    pcg = solvers.PCGSolver
+    stats.shift_invert_pcg = {}
     for label, a_st, b_st, thr, thr_dense, t_tree in pencils:
         tp = time.perf_counter()
+        n0, i0 = pcg.solves, pcg.iterations
         runs.append(run_pencil(label, a_st, b_st, t_tree, thr, thr_dense,
                                cut_p))
+        stats.shift_invert_pcg[label] = (
+            (pcg.solves - n0, pcg.iterations - i0)
+            if isinstance(t_tree, pcg) else None)
         sync()
         if timers is not None:
             dt = time.perf_counter() - tp
