@@ -80,7 +80,16 @@ with a non-zero exit code and no result line:
               from the bytes and operations (roofline.bound_ms); and the
               start-block draw at every shape phase structured gave it
               ([64, 2, 195112] float32), held against and timed beside
-              its plain version, with its bound (roofline.start_draw_model).
+              its plain version, with its bound (roofline.start_draw_model);
+              and the fused PCG iteration (ops/pcg_fused.py) at phase
+              nonsep's level-1 shape ([64, 58, 58, 58] float32, its
+              operator and surrogate FDM) and at the block shape its
+              set-up gave the shift-invert PCG most often (that PCG's
+              operator and surrogate FDM): each of its three kernels and
+              the three together held against and timed in turns with
+              their plain versions (of which PCGSolver.step is made, the
+              preconditioner's solve aside), beside
+              roofline.pcg_step_model's bound.
 
 11. api     — the library entry point (api.make_batch, geneo_setup,
               geneo_solve: the PCGenEOSetup twin) on the JAX package's
@@ -181,8 +190,10 @@ with a non-zero exit code and no result line:
               refinement to a true 1e-8), once.  The factor of the exact
               route would take ~168 GB, so the level-1 solves and the
               shift-invert LOBPCG run the surrogate-FDM PCG.  Holds
-              convergence (and again on the host), the inexact route and
-              no K1/K2 launch; prints the counts, dim_e, rel_err_max
+              convergence (and again on the host), the inexact route,
+              no K1/K2 launch, and one launch of each fused PCG kernel
+              (ops/pcg_fused.py) an iteration of the PCG (the set-up's
+              and the level-1's); prints the counts, dim_e, rel_err_max
               against x = 1..n, the phase seconds, peak memory, the PCG
               iterations of the LOBPCG and of each level-1 apply, and one
               level-1 apply timed with and without its per-iteration
@@ -195,8 +206,9 @@ path-shapes runs last, over the shapes of phases 5, 8, 9, 11, 12 and
 It then prints its wall seconds, one JSON line with every kernel's
 launches (the sum over the phases that drive a main path, and each
 phase's count), and its error, path, times and bound at the slice's
-shape (the draw's: phase structured's) and, under "shapes", at every
-shape of phase 10; and last the
+shape (the draw's: phase structured's; the fused PCG iteration's:
+phase nonsep's level-1) and, under "shapes", at every shape of phase
+10; and last the
 result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -505,6 +517,14 @@ def _peaks() -> dict:
     return peaks
 
 
+def pcg_launches() -> dict:
+    """The fused PCG kernels' launch counts so far."""
+    from geneo4petsc_tpu_torch.ops import pcg_fused
+
+    return {f.__name__: f.launches for f in (
+        pcg_fused.pcg_matvec, pcg_fused.pcg_update, pcg_fused.pcg_dot)}
+
+
 def phase_device() -> None:
     import torch
 
@@ -764,6 +784,119 @@ def phase_draw_shapes(draws: list) -> list:
             share_of_bound=share))
         del mask
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_pcg_shapes(cases) -> list:
+    """The fused PCG iteration at each (role, PCGSolver, vector shape) of
+    ``cases`` (phase nonsep's level-1 and the shift-invert block its
+    set-up gave most often), on that solver's operator and surrogate FDM,
+    from a masked normal right-hand side: each kernel, and the three in
+    turn, held against its plain version on the card (TOL: the sums run
+    in another order) and timed in turns with it, beside the bound of
+    roofline.pcg_step_model.  Returns a row per kernel and one for the
+    iteration ("pcg_iteration") at each shape."""
+    import torch
+
+    from geneo4petsc_tpu_torch.ops import pcg_fused as pf
+    from geneo4petsc_tpu_torch.utils import roofline
+    from geneo4petsc_tpu_torch.utils.cuda_timing import time_in_turns
+
+    peaks = _peaks()
+    rows = []
+    for role, pcg, shape in cases:
+        rows += _pcg_shape_rows(pf, roofline, time_in_turns, peaks, role,
+                                pcg, shape)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _pcg_shape_rows(pf, roofline, time_in_turns, peaks, role, pcg,
+                    shape) -> list:
+    import torch
+
+    st, mask = pcg.st, pcg.maskf
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _m, b, _tol2 = pcg._begin(torch.randn(
+        shape, generator=gen, device="cuda", dtype=mask.dtype))
+    z = pcg.pre.solve(b)
+    dtype_name = str(b.dtype).removeprefix("torch.")
+    where = f"{list(b.shape)} {dtype_name} ({role})"
+
+    def state():
+        """(u, r, p, z, w, spare p, partials pw, rz, rr, rz_prev) after
+        one iteration: every input of the next iteration's kernels."""
+        u, r = torch.zeros_like(b), b.clone()
+        ws = pf.Workspace(st, mask, r)
+        ws.dot(r, z)
+        p = ws.matvec(z, z.clone(), first=True)
+        ws.update(u, r, p)
+        z2 = pcg.pre.solve(r)
+        ws.dot(r, z2)
+        return [u, r, p, z2, ws.w, ws.spare, ws.pw, ws.rz, ws.rr,
+                ws.rz_prev]
+
+    ker, pln = state(), state()
+    calls = {
+        "pcg_matvec": (
+            lambda a: pf.pcg_matvec(st, mask, a[3], a[2], a[5], a[4], a[7],
+                                    a[9], a[6], False),
+            lambda a: pf.pcg_matvec_plain(st, mask, a[3], a[2], a[5], a[4],
+                                          a[7], a[9], a[6], False),
+            (5, 4, 6)),
+        "pcg_update": (
+            lambda a: pf.pcg_update(a[0], a[1], a[5], a[4], a[6], a[7],
+                                    a[9], a[8]),
+            lambda a: pf.pcg_update_plain(a[0], a[1], a[5], a[4], a[6],
+                                          a[7], a[9], a[8]),
+            (0, 1, 8, 9)),
+        "pcg_dot": (
+            lambda a: pf.pcg_dot(a[1], a[3], a[7]),
+            lambda a: pf.pcg_dot_plain(a[1], a[3], a[7]),
+            (7,)),
+    }
+    models = roofline.pcg_step_model(mask.numel(),
+                                     b.numel() // mask.numel(),
+                                     b.element_size())
+    # one iteration's kernels in turn, each held against its plain
+    # version on the same inputs; the dot's z is the preconditioned new
+    # residual, as in the loop (r is orthogonal to the old z)
+    for name, (kern, plain, outs) in calls.items():
+        if name == "pcg_dot":
+            ker[3], pln[3] = pcg.pre.solve(ker[1]), pcg.pre.solve(pln[1])
+        kern(ker)
+        plain(pln)
+        torch.cuda.synchronize()
+        for i in outs:
+            got, want = ker[i], pln[i]
+            if got.ndim == 2:            # partials: each system's sum
+                got, want = got.sum(1), want.sum(1)
+            rel = float((got - want).abs().max() / want.abs().max())
+            check(rel <= TOL[dtype_name], f"{name} {where}: output {i} "
+                  f"{rel:.3e} from its plain version")
+    rows = []
+    calls["pcg_iteration"] = (
+        lambda a: [c[0](a) for c in list(calls.values())[:3]],
+        lambda a: [c[1](a) for c in list(calls.values())[:3]], ())
+    models["pcg_iteration"] = tuple(map(sum, zip(*models.values())))
+    for name, (kern, plain, _outs) in calls.items():
+        moved, flops = models[name]
+        bound, by = roofline.bound_ms(moved, flops, b.dtype, peaks)
+        p, k = time_in_turns(lambda: plain(pln), lambda: kern(ker), reps=10,
+                             rounds=3)
+        share = bound / k["ms"]
+        print(f"[path-shapes] {name} {where} (nonsep): kernel "
+              f"{k['ms']:.4f} ms [{k['min_ms']:.4f}, {k['max_ms']:.4f}], "
+              f"plain {p['ms']:.4f} ms [{p['min_ms']:.4f}, "
+              f"{p['max_ms']:.4f}], bound {bound:.4f} ms ({moved} B, {by}),"
+              f" share of bound {share:.3f}", flush=True)
+        check(share <= 1.0, f"{name} {where}: {k['ms']:.4f} ms is under the "
+                            f"bound {bound:.4f} ms")
+        rows.append(dict(name=name, role=role, phases=["nonsep"],
+                         shape=list(b.shape), dtype=dtype_name,
+                         ms=k["ms"], ms_min=k["min_ms"], ms_max=k["max_ms"],
+                         plain_ms=p["ms"], bound_ms=bound, bound_by=by,
+                         share_of_bound=share))
     return rows
 
 
@@ -1100,6 +1233,8 @@ def phase_nonsep() -> dict:
     """bench.py nonsep10m through solve_structured at full size on the
     card's default plan (see the docstring); then the level-1 PCG's host
     checks timed against the same iterations without them."""
+    import dataclasses
+
     import torch
 
     from geneo4petsc_tpu_torch.config import GenEOOptions, KSPOptions
@@ -1131,8 +1266,23 @@ def phase_nonsep() -> dict:
                         iterations=PCGSolver.iterations)
         return refine(*a, **kw)
 
+    # the set-up's PCG solves by (shape, dtype name), with the first
+    # solver of each shape of a block (the shift-invert PCG's)
+    setup_shapes, block_pcg = {}, {}
+    pcg_solve = PCGSolver.solve
+
+    def watch(self, x):
+        if not at_solve:
+            key = (tuple(x.shape), str(x.dtype).removeprefix("torch."))
+            setup_shapes[key] = setup_shapes.get(key, 0) + 1
+            if x.ndim == 5:
+                block_pcg.setdefault(key, self)
+        return pcg_solve(self, x)
+
     PCGSolver.solves = PCGSolver.iterations = 0
+    fused0 = pcg_launches()
     ssolve.refined_solve_device = mark
+    PCGSolver.solve = watch
     t0 = time.perf_counter()
     try:
         # the card's default plan: float32 inner solves in float64
@@ -1143,10 +1293,12 @@ def phase_nonsep() -> dict:
                                       device="cuda")
     finally:
         ssolve.refined_solve_device = refine
+        PCGSolver.solve = pcg_solve
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {"fused_local_solve": lk.fused_local_solve.launches,
                 "block_matvec": lk.block_matvec.launches}
+    fused = {k: v - fused0[k] for k, v in pcg_launches().items()}
     setup_pcg = (at_solve["solves"], at_solve["iterations"])
     solve_pcg = (PCGSolver.solves - setup_pcg[0],
                  PCGSolver.iterations - setup_pcg[1])
@@ -1189,7 +1341,8 @@ def phase_nonsep() -> dict:
           f"{setup_pcg[0]} solves / {setup_pcg[1]} iterations, level-1 "
           f"{solve_pcg[0]} applies / {solve_pcg[1]} iterations "
           f"({solve_pcg[1] / max(solve_pcg[0], 1):.2f} an apply, cap "
-          f"{opts.dls1.max_it}); K1/K2 launches {launches}", flush=True)
+          f"{opts.dls1.max_it}); K1/K2 launches {launches}; fused PCG "
+          f"launches {fused}", flush=True)
     check(out.converged and out.true_res <= 1e-8 and host_res <= 1e-8,
           f"nonsep: not converged to 1e-8 (true_res {out.true_res}, host "
           f"{host_res})")
@@ -1203,6 +1356,16 @@ def phase_nonsep() -> dict:
           "nonsep: the preconditioner did not live on the card")
     check(launches == {"fused_local_solve": 0, "block_matvec": 0},
           f"nonsep: K1/K2 launched {launches}")
+    its = setup_pcg[1] + solve_pcg[1]
+    check(its > 0 and all(v == its for v in fused.values()),
+          f"nonsep: the fused PCG kernels launched {fused}, not once each "
+          f"an iteration of the run's {its} PCG iterations")
+    check(bool(block_pcg), "nonsep: the set-up's PCG took no block")
+    block = max(block_pcg, key=lambda k: (setup_shapes[k], k[0][1]))
+    print("[nonsep] set-up PCG solves by shape: " + ", ".join(
+        f"{list(sh)} {dt} x{n}" for (sh, dt), n in sorted(
+            setup_shapes.items())) + f"; block shape held and timed: "
+          f"{list(block[0])} {block[1]}", flush=True)
 
     # the level-1 solve's per-iteration host check (PCGSolver.solve's
     # busy()): one apply as the solve runs it, in turns with the same
@@ -1215,11 +1378,15 @@ def phase_nonsep() -> dict:
     l1.solve(rhs)
     k = PCGSolver.iterations - before
 
+    capped = dataclasses.replace(l1, max_it=k)
+    busy = PCGSolver._busy
+
     def unchecked():
-        m, _tol2, state = l1.start(rhs)
-        for _ in range(k):
-            state = l1.step(m, state)
-        return state[0] * m
+        PCGSolver._busy = lambda self, rr, tol2: True
+        try:
+            return capped.solve(rhs)
+        finally:
+            PCGSolver._busy = busy
 
     checked, free = time_in_turns(lambda: l1.solve(rhs), unchecked,
                                   reps=2, rounds=3, warmup=1)
@@ -1228,7 +1395,11 @@ def phase_nonsep() -> dict:
     share = per_it * total_its / 1e3 / (tm("setup") + tm("solve"))
     info.update(apply_ms=checked["ms"], apply_unchecked_ms=free["ms"],
                 apply_its=k, check_ms_per_it=per_it, check_share=share,
-                launches=launches)
+                launches=launches, setup_pcg_shapes={
+                    f"{list(sh)} {dt}": n
+                    for (sh, dt), n in sorted(setup_shapes.items())},
+                pcg_cases=[("level-1", l1, tuple(l1.maskf.shape)),
+                           ("shift-invert", block_pcg[block], block[0])])
     print(f"[nonsep] level-1 apply ({k} PCG iterations, float32): "
           f"{checked['ms']:.3f} ms [{checked['min_ms']:.3f}, "
           f"{checked['max_ms']:.3f}] with a host check an iteration, "
@@ -2103,27 +2274,39 @@ def main() -> int:
     phase_small()
     by_phase = {}
     by_phase["slice"], slice_shape, slice_info = phase_slice()
-    phase_structured_parity()
-    by_phase["battery"] = phase_battery()
+    pcg_by_phase = {}
+
+    def fusing(name, phase, *args):
+        """Run a phase; keep the fused PCG launches it made."""
+        before = pcg_launches()
+        out = phase(*args)
+        pcg_by_phase[name] = {k: v - before[k]
+                              for k, v in pcg_launches().items()}
+        return out
+
+    fusing("structured-parity", phase_structured_parity)
+    by_phase["battery"] = fusing("battery", phase_battery)
     from geneo4petsc_tpu_torch.ops.start_draw import start_draw
     draws_by_phase = {}
 
     def drawing(name, phase, *args):
-        """Run a phase; keep the start-block draw launches it made."""
+        """Run a phase; keep the start-block draw (and fused PCG)
+        launches it made."""
         before = start_draw.launches
-        out = phase(*args)
+        out = fusing(name, phase, *args)
         draws_by_phase[name] = start_draw.launches - before
         return out
 
     structured = drawing("structured", phase_structured)
-    by_phase["nonsep"] = drawing("nonsep", phase_nonsep)["launches"]
+    nonsep = drawing("nonsep", phase_nonsep)
+    by_phase["nonsep"] = nonsep["launches"]
     large = phase_large(slice_info)
     by_phase["large"] = large["launches"]
     by_phase["generic-family"], family_shapes = phase_generic_family()
     by_phase["api"], api_shapes = phase_api()
     by_phase["chk-dbg"], chk_shapes = phase_chk_dbg()
     phase_elastic_parity()
-    phase_elastic()
+    fusing("elastic", phase_elastic)
     layouts = drawing("block-layout", phase_block_layout)
     drawing("roofline", phase_roofline, layouts)
     for r in layouts.values():
@@ -2136,6 +2319,7 @@ def main() -> int:
                                    *family_shapes, *api_shapes,
                                    *chk_shapes, *nccl_shapes])
     draw_rows = phase_draw_shapes(structured["draws"])
+    pcg_rows = phase_pcg_shapes(nonsep.pop("pcg_cases"))
 
     sources = {"fused_local_solve": ("geneo4petsc_tpu_torch/csrc/"
                                      "fused_local_solve.cu",
@@ -2169,6 +2353,22 @@ def main() -> int:
                  **{k: v for k, v in draw_rows[0].items()
                     if k not in ("phases", "shape", "dtype")},
                  "shapes": draw_rows})
+    # the fused PCG iteration replaces no TPU kernel (XLA fuses JAX's
+    # while_loop); its three kernels' launches by phase, their times at
+    # phase nonsep's level-1 shape and the whole iteration's, and in
+    # "shapes" those at the set-up's shift-invert block too
+    it_row = next(r for r in pcg_rows if r["name"] == "pcg_iteration"
+                  and r["role"] == "level-1")
+    rows.append({"name": "pcg_fused", "route": "cuda",
+                 "source": "geneo4petsc_tpu_torch/csrc/pcg_fused.cu",
+                 "replaces": None,
+                 "launches": {k: sum(c[k] for c in pcg_by_phase.values())
+                              for k in pcg_launches()},
+                 "launches_by_phase": pcg_by_phase,
+                 **{k: v for k, v in it_row.items()
+                    if k not in ("name", "role", "phases", "shape",
+                                 "dtype")},
+                 "shapes": pcg_rows})
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}))

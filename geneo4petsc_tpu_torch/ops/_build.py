@@ -111,4 +111,14 @@ def load() -> ctypes.CDLL:
     lib.g4p_start_draw.argtypes = [vp, vp, i64, i64, i64, c_int, c_int,
                                    c_int, c_int, vp]
     lib.g4p_start_draw.restype = c_int
+    # ops/pcg_fused.py: the pointers, then the sizes, flags, grid x and
+    # y and the stream
+    launch = [c_int, c_int, c_int, vp]
+    lib.g4p_pcg_matvec.argtypes = [vp] * 12 + [i64] * 9 + [c_int, *launch]
+    lib.g4p_pcg_matvec.restype = c_int
+    lib.g4p_pcg_update.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, vp, vp,
+                                   i64, i64, *launch]
+    lib.g4p_pcg_update.restype = c_int
+    lib.g4p_pcg_dot.argtypes = [vp, vp, vp, i64, i64, *launch]
+    lib.g4p_pcg_dot.restype = c_int
     return lib

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import pcg_fused
 from . import fdm
 from . import local_ops as lo
 from .block_tridiag import BlockTridiagFactor, bt_factor, bt_solve
@@ -190,15 +191,21 @@ class PCGSolver:
     replacement for MUMPS LU when both FDM and block-tridiag are out
     (non-separable operators at scale).
 
-    ``reduce_dims``: the axes of one system (default: the box, so every
-    block column is a system of its own; the elastic backend adds the
-    displacement-component axis, which belongs to the system).
+    ``reduce_dims``: the trailing axes of one system (default: the box,
+    so every block column is a system of its own; the elastic backend
+    adds the displacement-component axis, which belongs to the system).
 
     ``PCGSolver.solves`` / ``PCGSolver.iterations`` count the calls of
     ``solve`` and their iterations, over every instance (a caller zeroes
     them before the run it reads).  ``start`` and ``step`` are one
-    solve's pieces: ``solve`` checks the residuals on the host before
-    each ``step``."""
+    solve's pieces: ``solve`` checks the residuals on the host after
+    each update and stops there, so it calls ``pre.solve`` once an
+    iteration.  Its iteration is the three passes of ``ops/pcg_fused.py``
+    (``_workspace``): for a ``LocalStencil`` operator the wrappers, which
+    launch their kernels on a card (the same arithmetic, its sums in
+    another order) and run their plain versions on the CPU; for any other
+    operator the plain versions.  ``step`` is made of the plain
+    versions."""
 
     st: lo.LocalStencil
     pre: ScaledFDM
@@ -213,50 +220,81 @@ class PCGSolver:
     solves = 0
     iterations = 0
 
+    def __post_init__(self):
+        k = len(self.reduce_dims)
+        if tuple(self.reduce_dims) != tuple(range(-k, 0)) or (
+                isinstance(self.st, lo.LocalStencil) and k != 3):
+            raise ValueError(f"PCGSolver: reduce_dims {self.reduce_dims} "
+                             "are not the trailing axes of a system (a "
+                             "LocalStencil's systems are its boxes)")
+
     def _dots(self, u, v):
         return (u * v).sum(dim=self.reduce_dims, keepdim=True)
 
-    def start(self, x: torch.Tensor):
-        """(mask, squared tolerances, state (u, r, p, rz)) of a solve of
-        the system with right-hand side ``x``."""
+    def _begin(self, x: torch.Tensor):
+        """(mask, masked right-hand side, squared tolerances)."""
         m = lo.lift(self.maskf, x)
         b = x * m
         tiny = torch.finfo(b.dtype).tiny
         tol2 = (self.rtol * torch.clamp(self._dots(b, b).sqrt(),
                                         min=tiny)) ** 2
+        return m, b, tol2
+
+    def start(self, x: torch.Tensor):
+        """(mask, squared tolerances, state (u, r, p, rz)) of a solve of
+        the system with right-hand side ``x``."""
+        m, b, tol2 = self._begin(x)
         p = self.pre.solve(b)
         return m, tol2, (torch.zeros_like(b), b, p, self._dots(b, p))
 
     def step(self, m: torch.Tensor, state):
-        """One PCG iteration of every system."""
+        """One PCG iteration of every system, on new tensors: the plain
+        versions of ``solve``'s passes around the preconditioner's (which
+        lift ``maskf`` themselves; ``m`` is ``start``'s mask)."""
         u, r, p, rz = state
-        w = self.st.matvec(p) * m
-        pw = self._dots(p, w)
-        alpha = torch.where(pw > 0, rz / torch.clamp(pw, min=1e-30),
-                            torch.zeros_like(pw))
-        u = u + alpha * p
-        r = r - alpha * w
+        u, r, p_new = u.clone(), r.clone(), torch.empty_like(p)
+        k = len(self.reduce_dims)
+        ws = pcg_fused.Workspace(self.st, self.maskf, r, axes=k)
+        ws.rz.copy_(rz.reshape(ws.rz.shape))
+        ws.update(u, r, ws.matvec(p, p, first=True))
         z = self.pre.solve(r)
-        rz2 = self._dots(r, z)
-        beta = torch.where(rz > 0, rz2 / torch.clamp(rz, min=1e-30),
-                           torch.zeros_like(rz))
-        return u, r, z + beta * p, rz2
+        ws.dot(r, z)
+        pcg_fused.pcg_direction_plain(z, p, p_new, ws.rz, ws.rz_prev, k)
+        return u, r, p_new, ws.rz.reshape(rz.shape)
+
+    def _busy(self, rr: torch.Tensor, tol2: torch.Tensor) -> bool:
+        """Whether a system (of any rank) has r.r above its tolerance."""
+        b = (rr > tol2).any()
+        return bool(b) if self.ip is None else self.ip.any(b)
+
+    def _workspace(self, r: torch.Tensor) -> pcg_fused.Workspace:
+        """The buffers and passes of a solve with residual ``r``."""
+        if isinstance(self.st, lo.LocalStencil):
+            return pcg_fused.Workspace(self.st, self.maskf, r)
+        return pcg_fused.Workspace(self.st, self.maskf, r,
+                                   axes=len(self.reduce_dims))
 
     def solve(self, x: torch.Tensor) -> torch.Tensor:
-        m, tol2, state = self.start(x)
-
-        def busy():
-            r = state[1]
-            b = (self._dots(r, r) > tol2).any()
-            return bool(b) if self.ip is None else self.ip.any(b)
-
-        it = 0
-        while it < self.max_it and busy():
-            state = self.step(m, state)
-            it += 1
+        m, r, tol2 = self._begin(x.contiguous())
+        u, it = torch.zeros_like(r), 0
+        if self.max_it > 0 and self._busy(self._dots(r, r), tol2):
+            ws = self._workspace(r)
+            p = self.pre.solve(r)
+            ws.dot(r, p)
+            p = ws.matvec(p, p, first=True)
+            while True:
+                ws.update(u, r, p)          # r in place
+                it += 1
+                if it >= self.max_it or not self._busy(
+                        ws.rr_sums().reshape(tol2.shape), tol2):
+                    break
+                z = self.pre.solve(r)
+                ws.dot(r, z)
+                p = ws.matvec(z, p, first=False)
+                del z       # in p now: free it before the next solve
         PCGSolver.solves += 1
         PCGSolver.iterations += it
-        return state[0] * m
+        return u * m
 
 
 # ---------------- policy ----------------

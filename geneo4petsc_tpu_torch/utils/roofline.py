@@ -225,6 +225,20 @@ def start_draw_model(d: int, k: int, n: int, isz: int) -> tuple[int, int]:
     return (k + 1) * d * n * isz, 0
 
 
+def pcg_step_model(loc: int, m: int, isz: int) -> dict:
+    """(bytes, operations) of each kernel of one fused PCG iteration
+    (ops.pcg_fused, csrc/pcg_fused.cu) on m columns of [d, n_l] boxes
+    (``loc`` = d*n_l): ``pcg_matvec`` reads z and p, the diagonal, the
+    three coupling fields and the mask and writes p and w (2 operations
+    for the direction, 13 for the 7-point product, 1 for the mask, 2 for
+    p.w a point); ``pcg_update`` reads u, r, p and w and writes u and r
+    (6); ``pcg_dot`` reads r and z (2).  The partials, a few hundred
+    values a system, are left out."""
+    return {"pcg_matvec": ((4 * m + 5) * loc * isz, 18 * m * loc),
+            "pcg_update": (6 * m * loc * isz, 6 * m * loc),
+            "pcg_dot": (2 * m * loc * isz, 2 * m * loc)}
+
+
 def tau_pencils(sd, tau: float, cut: int, dtype=torch.float32,
                 device="cuda") -> tuple:
     """The GenEO-1 tau pencil of setup_structured: (A_Neu, D A_Dir D,

@@ -9,6 +9,9 @@ the kernels against their plain versions, max relative error 1e-12 in
 float64 and 1e-5 in float32 (the sums run in another order); the cpu
 and cuda solves, equal iteration counts and solutions within 1e-10."""
 
+import dataclasses
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -579,3 +582,258 @@ def test_nbdevices_beyond_the_cards_exits_1(cuda, capsys):
     assert rc == 1
     assert f"has {torch.cuda.device_count()}" in err.err
     assert "INFO: solve" not in err.out
+
+
+# ---------------- the fused level-1 PCG iteration ----------------
+
+def _pcg_problem_host(shape, seed=0):
+    """A heat-like batched stencil on boxes [n_dom, lz, ly, lx], float64
+    on the host: couplings -U(0.5, 1.5) on the edges whose two ends are
+    real, the diagonal their absolute sums plus a mass U(0.1, 1) (so the
+    operator is SPD), the last x-plane of every odd domain pad slots
+    (identity rows, as the structured path pads)."""
+    from geneo4petsc_tpu_torch.structured.grid import _slices
+
+    rng = np.random.default_rng(seed)
+    mask = np.ones(shape)
+    if shape[-1] > 2:
+        mask[1::2, :, :, -1] = 0.0
+    diag = rng.uniform(0.1, 1.0, shape)
+    offs = []
+    for a in range(3):
+        lo_s, hi_s = _slices(4, 3 - a)
+        c = np.zeros(shape)
+        c[lo_s] = -rng.uniform(0.5, 1.5, c[lo_s].shape) * mask[lo_s] \
+            * mask[hi_s]
+        diag[lo_s] += np.abs(c[lo_s])
+        diag[hi_s] += np.abs(c[lo_s])
+        offs.append(c)
+    return np.where(mask > 0, diag, 1.0), offs, mask
+
+
+PCG_CASES = {
+    # the level-1 boxes of the 10M cells, one system a box
+    "heat64-f32": ((64, 58, 58, 58), None, torch.float32, 1e-5),
+    # a block of two columns on ragged boxes
+    "ragged-f64": ((3, 7, 11, 13), 2, torch.float64, 1e-12),
+    # a 2-D box: lz = 1, the z-axis skipped
+    "box2d-f32": ((4, 1, 30, 45), None, torch.float32, 1e-5),
+}
+
+
+def _pcg_solver(case, device):
+    from geneo4petsc_tpu_torch.structured import local_ops as lo
+    from geneo4petsc_tpu_torch.structured import solvers
+
+    shape, m, dtype, _ = PCG_CASES[case]
+    diag, offs, mask = _pcg_problem_host(shape)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device, dtype)
+
+    st = lo.LocalStencil(diag=dev(diag), offs=tuple(dev(c) for c in offs))
+    maskf = dev(mask)
+    vshape = shape if m is None else (shape[0], m) + shape[1:]
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        vshape)).to(device, dtype)
+    pcg = solvers.PCGSolver(st=st, pre=solvers.surrogate_fdm(st, maskf),
+                            maskf=maskf, rtol=1e-30, max_it=40)
+    return pcg, x
+
+
+def _fused_iterations(pcg, x, its):
+    """(u, r, p) after ``its`` fused iterations, p the last direction."""
+    from geneo4petsc_tpu_torch.ops import pcg_fused
+
+    _m, r, _tol2 = pcg._begin(x)
+    u = torch.zeros_like(r)
+    ws = pcg_fused.Workspace(pcg.st, pcg.maskf, r)
+    z = pcg.pre.solve(r)
+    for k in range(its):
+        if k:
+            z = pcg.pre.solve(r)
+        ws.dot(r, z)
+        p = ws.matvec(z, z if k == 0 else p, first=k == 0)
+        ws.update(u, r, p)
+    return u, r, p
+
+
+@pytest.mark.parametrize("its", [1, 2, 5])
+@pytest.mark.parametrize("case", list(PCG_CASES))
+def test_pcg_fused_iterations_match_plain_step(cuda, case, its):
+    """The three kernels of ops/pcg_fused.py against PCGSolver's plain
+    start and steps on the same card: u, r and the direction within 1e-5
+    relative in float32 (the dots' float32 sums run in another order, and
+    alpha and beta carry that into every point) and 1e-12 in float64; one
+    launch of each kernel an iteration; the same bits twice."""
+    from geneo4petsc_tpu_torch.ops import pcg_fused
+
+    pcg, x = _pcg_solver(case, cuda)
+    tol = PCG_CASES[case][3]
+    before = (pcg_fused.pcg_matvec.launches, pcg_fused.pcg_update.launches,
+              pcg_fused.pcg_dot.launches)
+    u, r, p = _fused_iterations(pcg, x, its)
+    torch.cuda.synchronize()
+    after = (pcg_fused.pcg_matvec.launches, pcg_fused.pcg_update.launches,
+             pcg_fused.pcg_dot.launches)
+    assert tuple(b + its for b in before) == after
+    m, _tol2, state = pcg.start(x)
+    for k in range(its):
+        if k == its - 1:
+            p_want = state[2]
+        state = pcg.step(m, state)
+    assert _rel(u, state[0]) <= tol
+    assert _rel(r, state[1]) <= tol
+    assert _rel(p, p_want) <= tol
+    again = _fused_iterations(pcg, x, its)
+    assert all(torch.equal(a, b) for a, b in zip((u, r, p), again))
+
+
+def test_pcg_solve_of_a_strided_block_launches_the_kernels(cuda):
+    """PCGSolver.solve on a LocalStencil on the card launches each kernel
+    once an iteration also for a right-hand side block that is a strided
+    view (as a reshaped slice of a LOBPCG block can be), with the bits of
+    its contiguous copy."""
+    from geneo4petsc_tpu_torch.ops import pcg_fused
+    from geneo4petsc_tpu_torch.structured.solvers import PCGSolver
+
+    pcg, x = _pcg_solver("ragged-f64", cuda)
+    pcg = dataclasses.replace(pcg, rtol=1e-6)
+    strided = x.transpose(-1, -3).contiguous().transpose(-1, -3)
+    assert not strided.is_contiguous()
+    out = []
+    for rhs in (strided, x):
+        n0 = [f.launches for f in (pcg_fused.pcg_matvec,
+                                   pcg_fused.pcg_update, pcg_fused.pcg_dot)]
+        i0 = PCGSolver.iterations
+        u = pcg.solve(rhs)
+        its = PCGSolver.iterations - i0
+        assert its > 0 and [f.launches - n for f, n in zip(
+            (pcg_fused.pcg_matvec, pcg_fused.pcg_update, pcg_fused.pcg_dot),
+            n0)] == [its] * 3
+        out.append((u, its))
+    assert out[0][1] == out[1][1] and torch.equal(out[0][0], out[1][0])
+
+
+def test_pcg_fused_raises_on_a_refused_launch(cuda, monkeypatch):
+    """A launch the card refuses (a grid of 70000 blocks in y, over
+    CUDA's 65535) comes back as the C entry point's cudaGetLastError and
+    raises; at the module's limit the kernel strides over the systems."""
+    from geneo4petsc_tpu_torch.ops import pcg_fused
+
+    r = torch.ones((70000, 1, 1, 2), dtype=torch.float32, device=cuda)
+    parts = r.new_empty((70000, pcg_fused.plan(r.shape, r.device).n_el))
+    with monkeypatch.context() as mp:
+        mp.setattr(pcg_fused, "_MAX_GRID_Y", 1 << 20)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pcg_fused.pcg_dot(r, r, parts)
+    pcg_fused.pcg_dot(r, r, parts)
+    torch.cuda.synchronize()
+    assert torch.equal(parts.sum(1), torch.full_like(parts[:, 0], 2.0))
+
+
+def test_pcg_fused_kernels_link_to_their_host_ops(cuda):
+    """Under the profiler each kernel is linked to the host op
+    ``pcg_fused.<kernel>`` that its wrapper opens around the launch, as a
+    torch op's kernels are to the op (the benchmark's spans read device
+    time through that link)."""
+    from torch.autograd import DeviceType
+
+    from geneo4petsc_tpu_torch.ops import pcg_fused
+
+    pcg, x = _pcg_solver("box2d-f32", cuda)
+    pcg.pre.solve(x)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _fused_iterations(pcg, x, 2)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    ops = {e.correlation_id(): e.name() for e in events
+           if e.device_type() == DeviceType.CPU
+           and e.linked_correlation_id() == 0}
+    linked = {}
+    for e in events:
+        kernel = re.search(r"pcg_\w+_kernel<\w+>", e.name())
+        if e.device_type() == DeviceType.CUDA and kernel:
+            linked.setdefault(kernel.group(0), set()).add(
+                ops.get(e.linked_correlation_id()))
+    assert linked == {
+        f"{k}_kernel<float>": {f"pcg_fused.{k}"}
+        for k in ("pcg_matvec", "pcg_update", "pcg_dot")}
+
+
+def _heat16_pc(dtype, device):
+    from geneo4petsc_tpu_torch.structured.decompose import \
+        StructuredDecomposition
+    from geneo4petsc_tpu_torch.structured.geneo import setup_structured
+    from geneo4petsc_tpu_torch.structured.grid import heat_grid
+
+    o = GenEOOptions()
+    o.lvl1, o.lvl2, o.tau, o.gamma, o.cst, o.optim, o.cut = (
+        "SORAS", "H2", 0.1, 10.0, False, 0.0, 4)
+    o.els2.type, o.els2.max_it = "lobpcg", 50
+    o.dls1.rtol, o.dls1.max_it = 0.05, 40
+    g = heat_grid(16, 3, 1e4, "minmax", lbd=1.0, dt=0.1)
+    sd = StructuredDecomposition(g, (2, 2, 2), 2)
+    pc, _ = setup_structured(sd, o, b=None, dtype=dtype, device=device,
+                             bt_budget_bytes=0)
+    return g, pc
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_pcg_solve_fused_counts_equal_plain_on_heat16(cuda, dtype,
+                                                      monkeypatch):
+    """PCGSolver.solve on the level-1 of heat 16^3 under SORAS,H2 (the
+    heat10m configuration's options, every local solve on the PCG
+    route): per apply, the fused path takes the plain path's iterations
+    in float64 and within one in float32, and the same counts twice; a
+    float64 refined solve takes the same inner and outer counts."""
+    from geneo4petsc_tpu_torch.ops import pcg_fused
+    from geneo4petsc_tpu_torch.structured import solve as ssolve
+    from geneo4petsc_tpu_torch.structured.grid import global_stencil
+    from geneo4petsc_tpu_torch.structured.solvers import PCGSolver
+
+    g, pc = _heat16_pc(dtype, cuda)
+    l1 = pc.l1
+    assert isinstance(l1, PCGSolver)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal(s)).to(cuda, dtype)
+          for s in [tuple(l1.maskf.shape)] * 6
+          + [(l1.maskf.shape[0], 3) + tuple(l1.maskf.shape[1:])]]
+
+    def counts():
+        out = []
+        for x in xs:
+            i0 = PCGSolver.iterations
+            l1.solve(x)
+            out.append(PCGSolver.iterations - i0)
+        return out
+
+    n0 = pcg_fused.pcg_matvec.launches
+    fused = counts()
+    assert pcg_fused.pcg_matvec.launches - n0 == sum(fused) > 0
+    assert counts() == fused
+    b = torch.from_numpy(g.matvec(rng.standard_normal(g.n_nodes))).to(cuda)
+    gop64 = global_stencil(g, torch.float64, cuda)
+
+    def refined():
+        out = ssolve.refined_solve_device(
+            gop64, b, ssolve.make_structured_inner(pc, 2000, "cg"),
+            tol=1e-8)
+        assert out.converged
+        return out.inner_its, out.outer_its
+
+    solve_fused = refined() if dtype == torch.float64 else None
+    monkeypatch.setattr(PCGSolver, "_workspace", lambda self, r: (
+        pcg_fused.Workspace(self.st, self.maskf, r, axes=3)))
+    n0 = pcg_fused.pcg_matvec.launches
+    plain = counts()
+    assert pcg_fused.pcg_matvec.launches == n0
+    if dtype == torch.float64:
+        assert fused == plain
+        assert refined() == solve_fused
+    else:
+        assert all(abs(a - b) <= 1 for a, b in zip(fused, plain))
